@@ -1,0 +1,68 @@
+"""Shared helpers for the PyTorch port's tests (tests/test_torch_*.py): one
+small configuration for both packages, JAX-initialized weights in the flat
+format, and their conversion into the port's ``state_dict``.
+
+Weights are made once by JAX ``model.init`` and perturbed with numpy, so
+biases, batch-norm scales and running statistics are not at their
+trivial init values; both sides then read the same arrays.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from mla_tpu.config import get_config as jax_get_config
+from mla_tpu.models.convert import flat_to_params, params_to_flat
+from mla_tpu.models.zoo import build_model as jax_build_model
+from mla_tpu_torch.config import get_config as torch_get_config
+from mla_tpu_torch.models.convert import flat_to_state_dict
+from mla_tpu_torch.models.zoo import build_model as torch_build_model
+
+SMALL = {
+    "model.conv_channels": "8,16",
+    "model.convs_per_stage": 1,
+    "model.embed_dim": 16,
+    "model.hidden_units": 32,
+    "model.n_classes": 5,
+    "model.compute_dtype": "float32",
+}
+
+
+def configs(overrides=None, preset="streaming_inference"):
+    """(jax Config, port Config) of one preset, both cut to SMALL plus
+    ``overrides``."""
+    ov = {**SMALL, **(overrides or {})}
+    return jax_get_config(preset, ov), torch_get_config(preset, ov)
+
+
+def jax_weights(jax_model_cfg, seed=0):
+    """(flax variables, flat weights) for ``jax_model_cfg``, perturbed off
+    their init values with a numpy generator seeded by ``seed``."""
+    model = jax_build_model(jax_model_cfg)
+    shape = ((1, 2, jax_model_cfg.embed_dim) if jax_model_cfg.trunk == "none"
+             else (1, 2, 96, 64))
+    variables = model.init(jax.random.key(seed), jnp.zeros(shape, jnp.float32))
+    flat = params_to_flat(jax.tree.map(np.asarray, dict(variables["params"])), prefix="params/")
+    if "batch_stats" in variables:
+        flat.update(params_to_flat(jax.tree.map(np.asarray, dict(variables["batch_stats"])),
+                                   prefix="batch_stats/"))
+    rng = np.random.default_rng(seed + 100)
+    for key, a in flat.items():
+        leaf = key.rsplit("/", 1)[-1]
+        if leaf in ("bias", "mean"):
+            flat[key] = (a + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        elif leaf in ("scale", "var"):
+            flat[key] = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+    tree = flat_to_params(flat)
+    return {k: tree[k] for k in tree}, flat
+
+
+def torch_state_dict(torch_model_cfg, flat):
+    """The port's state_dict for ``torch_model_cfg`` from flat weights."""
+    return flat_to_state_dict(flat, torch_build_model(torch_model_cfg, device="cpu"))
+
+
+def torch_model(torch_model_cfg, flat):
+    model = torch_build_model(torch_model_cfg, device="cpu")
+    model.load_state_dict(flat_to_state_dict(flat, model))
+    return model
