@@ -6,30 +6,48 @@
 Phases, in order; any failure raises and the script exits non-zero without
 printing its last line:
   1. device: the card's name, power limit and compute capability (9, 0);
-  2. build: the kernel from mla_tpu_torch/csrc, timed, with nvcc's ptxas
-     report;
-  3. each kernel against its plain torch version on the card, at the main
-     path's shapes and a few others, per precision mode, and against the
-     front-end golden file (TF32 off);
-  4. the main path at full width: BatchedStreamingServer on the
+  2. build: every kernel source in mla_tpu_torch/csrc, one nvcc each, all
+     started together, timed, with nvcc's ptxas report;
+  3. each kernel against its plain torch version on the card: the fused
+     front-end at the serving and training shapes and a few others, per
+     precision mode, and against the front-end golden file (TF32 off); the
+     row-merge probe's two kernels bit-exact at three shapes;
+  4. the probe entry point (python -m mla_tpu_torch.probe_row_merge): its
+     verdict must be "supported", through both probe kernels;
+  5. the serving path at full width: BatchedStreamingServer on the
      streaming_inference preset with frontend.impl="pallas", random weights
      from a seeded torch.Generator through the flat weight format, 8 int16
      streams of ~20-30 s fed in uneven blocks, ticks, flushes and scores;
-     the launch counters must show the kernel ran once per device step, and
-     the scores must agree with the same server on the torch-ops front-end;
-  5. times (median of 30 after warm-up): each kernel and its plain version
-     with CUDA events, one server tick on the host clock, the kernel's
-     bound, and a torch.profiler breakdown of ten ticks.
-It prints the card's line from nvidia-smi, one JSON line of per-kernel
-numbers, and last {"ok": true, "device": {...}}. The full record also goes
-to build/chip_smoke.json.
+     the front-end kernel must run once per device step, and the scores
+     must agree with the same server on the torch-ops front-end;
+  6. the training path at full width: fit() on the us8k_fused_frontend
+     preset as shipped (front-end kernel at "highest", batch 64 of 4 s
+     clips), cut only in num_steps / eval_every / checkpoint_every; finite
+     losses, one front-end launch per train step and per eval batch,
+     resume() restoring exactly the trained weights, and the first step's
+     loss on the kernel against the torch-ops front-end;
+  7. times (median of 30 after warm-up): each kernel, its plain version and
+     the library call where one exists, with CUDA events (the probe
+     kernels on inputs that are not in the L2 cache); one server tick
+     and one train step on the host clock; each kernel's bound; and
+     torch.profiler breakdowns of ten ticks and five train steps.
+Launch counts are set to 0 just before each path (probe, serving,
+training) is driven and read just after. The script prints the card's line
+from nvidia-smi, one JSON line of per-kernel numbers, and last
+{"ok": true, "device": {...}}. The full record also goes to
+build/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
+import io
+import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,18 +66,35 @@ PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TOL = {"highest": 2e-4, "bf16x3": 5e-4, "default": 1e-3}  # kernel vs plain version
 BF16_SCORE_BUDGET = 2e-2  # scores, pallas vs torch-ops front-end under bf16 compute
+# first-step BCE loss, pallas vs torch-ops front-end, bf16 trunk: the two
+# front-ends differ by ~1e-6 in log-mel at "highest", so the losses differ
+# only where that flips a bf16 rounding (3.4e-5 measured on an H100)
+BF16_LOSS_BUDGET = 1e-3
 MAIN_PRECISION = "default"  # the streaming_inference preset's front-end precision
+PROBE_CASES = (((960, 160), 3), ((4096, 1024), 4), ((33, 7), 3))  # (shape, rows)
+TRAIN_CUT = {"train.num_steps": 30, "train.eval_every": 15,
+             "train.checkpoint_every": 15, "train.log_every": 5}
+# (substring of the CUDA symbol, kernel): the port's own kernels are launched
+# through ctypes, outside any operator, so the profiler is read by name
+PORT_KERNELS = (("fused_log_mel", "fused_log_mel_patches"), ("scale2_kernel", "scale2"),
+                ("row_merge_kernel", "row_merge"))
+SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: longer than queueing a burst
+L2_BYTES = 50e6  # the H100's L2 cache
 
 
 def _median_ms(fn, reps: int = REPS, inner: int = 10, warmup: int = 3) -> float:
     """Median device time of one fn() call in ms: CUDA events around each of
-    ``reps`` bursts of ``inner`` back-to-back calls, so the host's launch
-    cost hides behind the queue as it does in a running server."""
+    ``reps`` bursts of ``inner`` back-to-back calls. A spin kernel queued
+    ahead of each burst holds the stream while the host queues the whole
+    burst, so the events time the device's work, not the host's launch
+    rate (a ~1 us kernel launched through ctypes would otherwise measure
+    the host)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -69,21 +104,34 @@ def _median_ms(fn, reps: int = REPS, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _profile_ticks(srv, n_ticks: int):
-    """torch.profiler over n_ticks ticks: (host ms per tick, device-busy ms
-    per tick, [(operator or kernel, device ms per tick)] for the top eight), or busy
-    None if the profiler saw no device activity."""
+def _host_median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Median host-clock time of fn() followed by torch.cuda.synchronize()."""
+    times = []
+    for i in range(warmup + reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _profile(fn, n: int):
+    """torch.profiler over n calls of fn: (host ms per call, device-busy ms
+    per call, [(operator or kernel, device ms per call)] for the top ten and
+    every kernel of the port), or busy None if the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            srv.tick()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA]
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in device]
     if not spans:
         return host_ms, None, []
     busy_us, cur_s, cur_e = 0.0, None, None
@@ -97,15 +145,60 @@ def _profile_ticks(srv, n_ticks: int):
     # device time by the operator that launched it (kernel names are templates)
     ops = [(ev.key, ev.self_device_time_total) for ev in prof.key_averages()
            if ev.device_type == torch.autograd.DeviceType.CPU and ev.self_device_time_total > 0]
-    # the port's own kernels are launched through ctypes, outside any operator
-    ops += [("kernel fused_log_mel_patches", ev.time_range.elapsed_us())
-            for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
-            and "fused_log_mel" in ev.name]
+    for ev in device:
+        for symbol, kernel in PORT_KERNELS:
+            if symbol in ev.name:
+                ops.append((f"kernel {kernel}", ev.time_range.elapsed_us()))
     totals = {}
     for k, v in ops:
         totals[k] = totals.get(k, 0.0) + v
-    top = sorted(totals.items(), key=lambda kv: -kv[1])[:8]
-    return host_ms, busy_us / 1e3 / n_ticks, [(k, v / 1e3 / n_ticks) for k, v in top]
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1])
+    top = ranked[:10] + [kv for kv in ranked[10:] if kv[0].startswith("kernel ")]
+    return host_ms, busy_us / 1e3 / n, [(k, v / 1e3 / n) for k, v in top]
+
+
+def _report_profile(what: str, n: int, unprofiled_ms: float, prof, tag: str) -> dict:
+    host, busy, top = prof
+    if busy is None:
+        print(f"{what} profile: device time not measured (the profiler saw no device "
+              f"activity) {tag}")
+        return {"host_ms_profiler_on": host, "device_busy_ms": None, "idle_share": None,
+                "top_ms": top}
+    # the profiler slows the host, not the device: the idle share is the
+    # profiled device busy against the unprofiled time of the same work
+    idle = 1 - busy / unprofiled_ms
+    print(f"{what} profile ({n} runs): device busy {busy:.4f} ms per run; idle share "
+          f"against the unprofiled run {idle:.4f}; host with the profiler on {host:.4f} ms "
+          f"per run {tag}")
+    for k, v in top:
+        print(f"{what} profile: {v:.4f} ms device per run under {k}")
+    return {"host_ms_profiler_on": host, "device_busy_ms": busy, "idle_share": idle,
+            "top_ms": top}
+
+
+def _frontend_bound(ff, trimmed_spectral_bases, fcfg, b: int, n: int) -> dict:
+    """The fused front-end's least time on this card for a [b, n] batch, per
+    precision mode: the larger of its bytes (waveform span once, log-mel
+    once, bases once) over the memory rate and its operations over the peak
+    of their operand type."""
+    _, _, frames, _, _, _ = ff._framing_plan(fcfg, n)
+    cos_b, _, mel_t, n_bins = trimmed_spectral_bases(fcfg)
+    k, m = cos_b.shape[0], fcfg.num_mel_bins
+    dft_flops = 2 * 2 * b * frames * k * n_bins
+    mel_flops = 2 * b * frames * n_bins * m
+    nbytes = ff.frontend_bytes_moved(b, n, fcfg) + 4 * (2 * cos_b.size + mel_t.size)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    # the DFT's products are f32 in "highest", one bf16 pass in "default"
+    # and three in "bf16x3"; the mel product is f32 in every mode
+    dft_peak_passes = {"highest": (PEAK_F32_FLOPS, 1), "default": (PEAK_BF16_TC_FLOPS, 1),
+                       "bf16x3": (PEAK_BF16_TC_FLOPS, 3)}
+    ops_ms = {p: (passes * dft_flops / peak + mel_flops / PEAK_F32_FLOPS) * 1e3
+              for p, (peak, passes) in dft_peak_passes.items()}
+    return {"bound_ms": {p: max(ops_ms[p], bytes_ms) for p in TOL},
+            "bound_by": {p: "operations" if ops_ms[p] >= bytes_ms else "bytes" for p in TOL},
+            "f32_cores_ms": max((dft_flops + mel_flops) / PEAK_F32_FLOPS * 1e3, bytes_ms),
+            "bytes": nbytes, "bytes_ms": bytes_ms, "dft_flops": dft_flops,
+            "mel_flops": mel_flops}
 
 
 def _drive(srv, streams, schedule):
@@ -137,13 +230,19 @@ def main() -> int:
               "an NVIDIA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from mla_tpu_torch import probe_row_merge
     from mla_tpu_torch.config import FrontendConfig, get_config
+    from mla_tpu_torch.data.sampler import BalancedSampler
+    from mla_tpu_torch.data.synthetic import make_dataset
     from mla_tpu_torch.models.convert import flat_to_state_dict, state_dict_to_flat
     from mla_tpu_torch.models.zoo import build_model
     from mla_tpu_torch.ops import _build
     from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.ops import row_merge as rm
     from mla_tpu_torch.ops.frontend import trimmed_spectral_bases
     from mla_tpu_torch.serve.server import BatchedStreamingServer
+    from mla_tpu_torch.train import loop
+    from mla_tpu_torch.train.state import create_train_state, make_train_step
 
     record = {}
 
@@ -157,18 +256,29 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
     record["card"] = card
+    tag = f"({card})"
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
+    sources = {"fused_frontend": ff._SIGNATURES, "row_merge": rm._SIGNATURES}
+
+    def build(src):
+        t0 = time.perf_counter()
+        _build.load(src, sources[src])
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.load("fused_frontend", ff._SIGNATURES)
-    build_s = time.perf_counter() - t0
-    print(f"build: csrc/fused_frontend.cu {build_s:.2f} s")
-    ptxas_log = _build.library_path("fused_frontend").with_suffix(".log")
-    if ptxas_log.exists():
-        print(ptxas_log.read_text().strip())
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        futures = {src: pool.submit(build, src) for src in sources}
+        build_s = {src: f.result() for src, f in futures.items()}
+    print(f"build: {len(sources)} sources in parallel, {time.perf_counter() - t0:.2f} s")
+    for src, s in build_s.items():
+        print(f"build: csrc/{src}.cu {s:.2f} s")
+        ptxas_log = _build.library_path(src).with_suffix(".log")
+        if ptxas_log.exists():
+            print(ptxas_log.read_text().strip())
     record["build_s"] = build_s
 
-    # 3. kernel vs plain version on the card
+    # 3. kernels vs their plain versions on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
@@ -177,8 +287,9 @@ def main() -> int:
     # 22.05 kHz: window 551 (not a multiple of 4), 349 mel-active bins (more
     # than one per thread), > 48 KB of shared memory per block
     sr22 = dataclasses.replace(cfg, sample_rate=22050)
-    cases = [("serve [8, 77120]", (8, 77120), cfg), ("10 s batch [4, 160000]", (4, 160000), cfg),
-             ("1-D [160000]", (160000,), cfg), ("0.5 s patches [2, 64000]", (2, 64000), geo),
+    cases = [("serve [8, 77120]", (8, 77120), cfg), ("train [64, 64000]", (64, 64000), cfg),
+             ("10 s batch [4, 160000]", (4, 160000), cfg), ("1-D [160000]", (160000,), cfg),
+             ("0.5 s patches [2, 64000]", (2, 64000), geo),
              ("22.05 kHz [2, 88200]", (2, 88200), sr22)]
     errs = {}
     for label, shape, c in cases:
@@ -203,7 +314,38 @@ def main() -> int:
     if err > 2e-4:
         raise RuntimeError(f"kernel disagrees with the front-end golden: {err}")
 
-    # 4. the main path at full width
+    probe_errs = {"scale2": {}, "row_merge": {}}
+    for shape, rows in PROBE_CASES:
+        x = torch.randn(shape, generator=gen).cuda()
+        got = {"scale2": rm.scale2(x), "row_merge": rm.row_merge(x, rows)}
+        torch.cuda.synchronize()
+        want = {"scale2": rm.scale2_reference(x), "row_merge": rm.row_merge_reference(x, rows)}
+        for k in got:
+            if got[k].shape != want[k].shape:
+                raise RuntimeError(f"{k} {list(shape)}: shape {tuple(got[k].shape)}")
+            probe_errs[k][f"{list(shape)} rows {rows}"] = float((got[k] - want[k]).abs().max())
+            if not torch.equal(got[k], want[k]):
+                raise RuntimeError(f"{k} {list(shape)} rows {rows} is not bit-exact")
+            print(f"kernel vs plain, {k} {list(shape)} rows {rows}: bit-exact")
+    record["probe_max_abs_err"] = probe_errs
+
+    # 4. the probe entry point
+    for k in rm.LAUNCHES:
+        rm.LAUNCHES[k] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        probe_row_merge.main()
+    torch.cuda.synchronize()
+    probe_launches = dict(rm.LAUNCHES)
+    probe_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"probe: {json.dumps(probe_line)}; launches {probe_launches}")
+    if probe_line["verdict"] != "supported" or probe_line["platform"] != "cuda":
+        raise RuntimeError(f"row-merge probe on the card: {probe_line}")
+    if min(probe_launches.values()) < 1:
+        raise RuntimeError(f"the probe did not go through both kernels: {probe_launches}")
+    record.update(probe=probe_line, probe_launches=probe_launches)
+
+    # 5. the serving path at full width
     scfg = get_config("streaming_inference", {"frontend.impl": "pallas"})
     model = build_model(scfg.model, device="cpu", seed=SEED)
     flat = state_dict_to_flat(model.state_dict())
@@ -233,10 +375,11 @@ def main() -> int:
     d0 = srv.dispatches
     scores = _drive(srv, streams, schedule)
     torch.cuda.synchronize()
-    launches, dispatches = ff.LAUNCHES, srv.dispatches - d0
-    print(f"main path: {dispatches} device steps, fused_log_mel_patches launches {launches}")
-    if launches != dispatches or launches < 1:
-        raise RuntimeError(f"kernel launches {launches} != device steps {dispatches}")
+    serve_launches, dispatches = ff.LAUNCHES, srv.dispatches - d0
+    print(f"serving path: {dispatches} device steps, fused_log_mel_patches launches "
+          f"{serve_launches}")
+    if serve_launches != dispatches or serve_launches < 1:
+        raise RuntimeError(f"kernel launches {serve_launches} != device steps {dispatches}")
     n_classes = scfg.model.n_classes
     if scores.shape != (9, n_classes) or not np.isfinite(scores).all() \
             or scores.min() < 0 or scores.max() > 1:
@@ -247,15 +390,70 @@ def main() -> int:
                                   transfer_dtype="int16")
     xscores = _drive(xsrv, streams, schedule)
     score_err = float(np.abs(scores - xscores).max())
-    print(f"main path scores, pallas vs xla front-end: max |diff| {score_err:.3e} "
+    print(f"serving path scores, pallas vs xla front-end: max |diff| {score_err:.3e} "
           f"(bf16 budget {BF16_SCORE_BUDGET:g})")
     if score_err > BF16_SCORE_BUDGET:
         raise RuntimeError(f"pallas and xla servers disagree: {score_err}")
-    record.update(main_path_dispatches=dispatches, main_path_launches=launches,
+    record.update(main_path_dispatches=dispatches, main_path_launches=serve_launches,
                   score_err_vs_xla=score_err)
 
-    # 5. times
-    tag = f"({card})"
+    # 6. the training path at full width
+    tcfg = get_config("us8k_fused_frontend", TRAIN_CUT)
+    ws = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(ws, ignore_errors=True)
+    ff.LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = loop.fit(tcfg, workspace=ws)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_launches, counts = ff.LAUNCHES, dict(result.counts)
+    losses = [h["loss"] for h in result.history]
+    print(f"training path: {counts['train_steps']} train steps + {counts['eval_batches']} eval "
+          f"batches in {fit_s:.2f} s, fused_log_mel_patches launches {train_launches}")
+    print(f"training path: losses {losses}; eval {result.eval_stats}")
+    if counts["train_steps"] != tcfg.train.num_steps or result.interrupted:
+        raise RuntimeError(f"fit ran {counts} of {tcfg.train.num_steps} steps")
+    if train_launches != counts["train_steps"] + counts["eval_batches"]:
+        raise RuntimeError(f"kernel launches {train_launches} != train steps + eval batches "
+                           f"{counts}")
+    if not losses or not np.isfinite(losses).all():
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if not result.eval_stats or not np.isfinite(result.eval_stats[-1]["mAP"]):
+        raise RuntimeError(f"bad eval stats: {result.eval_stats}")
+    restored, sampler_state = loop.resume(tcfg, workspace=ws)
+    trained = result.state.model.state_dict()
+    for k, v in restored.model.state_dict().items():
+        if not torch.equal(v, trained[k]):
+            raise RuntimeError(f"resume() did not restore {k} exactly")
+    if restored.step != tcfg.train.num_steps or not sampler_state:
+        raise RuntimeError(f"resume() restored step {restored.step}, sampler {sampler_state}")
+    print(f"training path: resume() restored step {restored.step} and all "
+          f"{len(trained)} tensors exactly")
+
+    bs = tcfg.train.batch_size
+    ds = make_dataset(tcfg.data, tcfg.model.n_classes, "train", "waveform")
+    idx = BalancedSampler(ds.y, bs, tcfg.train.seed).next_batch()  # fit's first batch
+    x1 = torch.from_numpy(np.ascontiguousarray(ds.x[idx])).cuda()
+    y1 = torch.from_numpy(np.asarray(ds.y[idx], np.float32)).cuda()
+    first_loss = {}
+    for impl in ("pallas", "xla"):
+        c = dataclasses.replace(tcfg, frontend=dataclasses.replace(tcfg.frontend, impl=impl))
+        m = build_model(c.model, seed=c.train.seed)
+        _, loss = make_train_step(c, m, "waveform", clip_samples=x1.shape[1])(
+            create_train_state(c, m), x1, y1)
+        first_loss[impl] = float(loss)
+    loss_err = abs(first_loss["pallas"] - first_loss["xla"])
+    print(f"training path: first-step loss pallas {first_loss['pallas']:.6f}, xla "
+          f"{first_loss['xla']:.6f}, |diff| {loss_err:.3e} (bf16 budget {BF16_LOSS_BUDGET:g}); "
+          f"fit's logged step-1 loss {losses[0]:.6f}")
+    if loss_err > BF16_LOSS_BUDGET:
+        raise RuntimeError(f"first-step loss, pallas vs xla front-end: {loss_err}")
+    record.update(train_counts=counts, train_launches=train_launches, train_losses=losses,
+                  train_eval=result.eval_stats, fit_s=fit_s, first_step_loss=first_loss,
+                  first_step_loss_err=loss_err)
+
+    # 7. times
+    # the fused front-end at the serving shape, each mode, and its plain version
     wav = (torch.randn((8, srv.chunk_samples), generator=gen) * 0.1).cuda()
     kernel_ms = {p: _median_ms(lambda p=p: ff.fused_log_mel_patches(wav, scfg.frontend, p))
                  for p in TOL}
@@ -264,72 +462,100 @@ def main() -> int:
     plain_ms = _median_ms(
         lambda: ff.fused_log_mel_patches_reference(wav, scfg.frontend, MAIN_PRECISION))
     print(f"time: plain version {MAIN_PRECISION} [8, {srv.chunk_samples}]: {plain_ms:.4f} ms {tag}")
+    b, n = wav.shape
+    sbound = _frontend_bound(ff, trimmed_spectral_bases, scfg.frontend, b, n)
+    bound = sbound["bound_ms"]
+    print(f"bound, serving [8, {n}]: {sbound['dft_flops'] / 1e9:.4f} GFLOP DFT + "
+          f"{sbound['mel_flops'] / 1e9:.4f} GFLOP mel; {sbound['bytes'] / 1e6:.3f} MB at "
+          f"{PEAK_BYTES / 1e12:g} TB/s = {sbound['bytes_ms']:.4f} ms; highest (f32 "
+          f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s) {bound['highest']:.4f} ms, default (DFT bf16 "
+          f"{PEAK_BF16_TC_FLOPS / 1e12:g} TFLOP/s, mel f32) {bound['default']:.4f} ms, bf16x3 "
+          f"(three bf16 passes, mel f32) {bound['bf16x3']:.4f} ms; side number, all on f32 "
+          f"CUDA cores as this kernel computes {sbound['f32_cores_ms']:.4f} ms {tag}")
+    for p in TOL:
+        print(f"roofline share: fused_log_mel_patches {p} [8, {n}]: "
+              f"{bound[p] / kernel_ms[p]:.4f} of bound {tag}")
+
+    # the fused front-end at the training shape, at the preset's precision
+    tprec = tcfg.frontend.precision
+    w64 = (torch.randn((bs, x1.shape[1]), generator=gen) * 0.1).cuda()
+    train_kernel_ms = _median_ms(lambda: ff.fused_log_mel_patches(w64, tcfg.frontend, tprec))
+    train_plain_ms = _median_ms(
+        lambda: ff.fused_log_mel_patches_reference(w64, tcfg.frontend, tprec))
+    tbound = _frontend_bound(ff, trimmed_spectral_bases, tcfg.frontend, *w64.shape)
+    print(f"time: fused_log_mel_patches {tprec} {list(w64.shape)}: {train_kernel_ms:.4f} ms, "
+          f"plain version {train_plain_ms:.4f} ms, bound {tbound['bound_ms'][tprec]:.4f} ms "
+          f"({tbound['bound_by'][tprec]}: {tbound['dft_flops'] / 1e9:.4f} GFLOP DFT + "
+          f"{tbound['mel_flops'] / 1e9:.4f} GFLOP mel, {tbound['bytes'] / 1e6:.3f} MB), "
+          f"{tbound['bound_ms'][tprec] / train_kernel_ms:.4f} of bound {tag}")
+
+    # the probe kernels, at each probe shape, beside the library call; each
+    # call reads the next of enough copies of its input to fill the L2 twice,
+    # so it finds its input in device memory, as the probe's one call does
+    probe_ms = {"scale2": {}, "row_merge": {}}
+    for shape, rows in PROBE_CASES[:2]:
+        x = torch.randn(shape, generator=gen).cuda()
+        copies = [x.clone() for _ in range(max(2, int(-(-2 * L2_BYTES // (4 * x.numel())))))]
+        nxt = itertools.cycle(copies).__next__
+        merged = (shape[0] // rows, rows * shape[1])
+        key = f"{list(shape)} rows {rows}"
+        nbytes = rm.bytes_moved(x)
+        for k, kern, plain, lib in (
+                ("scale2", lambda: rm.scale2(nxt()), lambda: rm.scale2_reference(nxt()),
+                 lambda: torch.mul(nxt(), 2)),
+                ("row_merge", lambda: rm.row_merge(nxt(), rows),
+                 lambda: rm.row_merge_reference(nxt(), rows),
+                 lambda: nxt().reshape(merged).clone())):
+            t = {"ms": _median_ms(kern, inner=20), "plain_ms": _median_ms(plain, inner=20),
+                 "library_ms": _median_ms(lib, inner=20),
+                 "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes,
+                 "input_copies": len(copies)}
+            probe_ms[k][key] = t
+            print(f"time: {k} {key}: {t['ms'] * 1e3:.2f} us, plain version "
+                  f"{t['plain_ms'] * 1e3:.2f} us, library {t['library_ms'] * 1e3:.2f} us, "
+                  f"bound {t['bound_ms'] * 1e3:.3f} us ({nbytes / 1e6:.4f} MB at "
+                  f"{PEAK_BYTES / 1e12:g} TB/s), {t['bound_ms'] / t['ms']:.4f} of bound {tag}")
+    record.update(probe_ms=probe_ms)
+
+    # one server tick, host clock, and its profile
     n_prof = 10
     tick_audio = (0.1 * rng.standard_normal(
         srv.chunk_samples + (REPS + 3 + n_prof) * srv.hop_samples)).astype(np.float32)
     for _ in range(8):
         srv.feed(srv.open(), tick_audio)
-    tick_ms = []
-    for _ in range(REPS + 3):
-        t0 = time.perf_counter()
-        srv.tick()
-        torch.cuda.synchronize()
-        tick_ms.append((time.perf_counter() - t0) * 1e3)
-    tick_med = statistics.median(tick_ms[3:])
+    tick_med = _host_median_ms(srv.tick)
     print(f"time: server tick, 8 int16 streams x 5 patches, host clock: {tick_med:.4f} ms {tag}")
-    prof_host, prof_busy, prof_top = _profile_ticks(srv, n_prof)
-    if prof_busy is None:
-        print(f"tick profile: device time not measured (the profiler saw no device activity) {tag}")
-    else:
-        # the profiler slows the host, not the device: the idle share is the
-        # profiled device busy against the unprofiled tick
-        idle_share = 1 - prof_busy / tick_med
-        print(f"tick profile ({n_prof} ticks): device busy {prof_busy:.4f} ms per tick; idle "
-              f"share against the unprofiled tick {idle_share:.4f}; host with the profiler "
-              f"on {prof_host:.4f} ms per tick {tag}")
-        for k, v in prof_top:
-            print(f"tick profile: {v:.4f} ms device per tick under {k}")
-    record.update(tick_profile={"host_ms_profiler_on": prof_host, "device_busy_ms": prof_busy,
-                                "idle_share": None if prof_busy is None else idle_share,
-                                "top_kernels_ms": prof_top})
+    tick_prof = _report_profile("tick", n_prof, tick_med, _profile(srv.tick, n_prof), tag)
 
-    b, n = wav.shape
-    _, _, frames, _, _, _ = ff._framing_plan(scfg.frontend, n)
-    cos_b, _, mel_t, n_bins = trimmed_spectral_bases(scfg.frontend)
-    k, m = cos_b.shape[0], scfg.frontend.num_mel_bins
-    dft_flops = 2 * 2 * b * frames * k * n_bins
-    mel_flops = 2 * b * frames * n_bins * m
-    nbytes = ff.frontend_bytes_moved(b, n, scfg.frontend) + 4 * (2 * cos_b.size + mel_t.size)
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    # operations over the card's peak for their operand type: the DFT's
-    # products are f32 in "highest", one bf16 pass in "default" and three in
-    # "bf16x3"; the mel product is f32 in every mode
-    dft_peak_passes = {"highest": (PEAK_F32_FLOPS, 1), "default": (PEAK_BF16_TC_FLOPS, 1),
-                       "bf16x3": (PEAK_BF16_TC_FLOPS, 3)}
-    ops_ms = {p: (passes * dft_flops / peak + mel_flops / PEAK_F32_FLOPS) * 1e3
-              for p, (peak, passes) in dft_peak_passes.items()}
-    bound = {p: max(ops_ms[p], bytes_ms) for p in TOL}
-    f32_cores_ms = max((dft_flops + mel_flops) / PEAK_F32_FLOPS * 1e3, bytes_ms)
-    print(f"bound: {dft_flops / 1e9:.4f} GFLOP DFT + {mel_flops / 1e9:.4f} GFLOP mel; "
-          f"{nbytes / 1e6:.3f} MB at {PEAK_BYTES / 1e12:g} TB/s = {bytes_ms:.4f} ms; "
-          f"highest (f32 {PEAK_F32_FLOPS / 1e12:g} TFLOP/s) {bound['highest']:.4f} ms, "
-          f"default (DFT bf16 {PEAK_BF16_TC_FLOPS / 1e12:g} TFLOP/s, mel f32) "
-          f"{bound['default']:.4f} ms, bf16x3 (three bf16 passes, mel f32) "
-          f"{bound['bf16x3']:.4f} ms; side number, all on f32 CUDA cores as this kernel "
-          f"computes {f32_cores_ms:.4f} ms {tag}")
-    for p in TOL:
-        print(f"roofline share: fused_log_mel_patches {p}: "
-              f"{bound[p] / kernel_ms[p]:.4f} of bound {tag}")
+    # one train step at full width, host clock, and its profile
+    state = result.state
+    step = make_train_step(tcfg, state.model, "waveform", clip_samples=x1.shape[1])
+    step_med = _host_median_ms(lambda: step(state, x1, y1))
+    clips_s = bs / (step_med / 1e3)
+    print(f"time: train step, batch {bs} x {x1.shape[1]} samples ({bs * 4} patches), host "
+          f"clock: {step_med:.4f} ms, {clips_s:.1f} clips/s {tag}")
+    n_steps_prof = 5
+    step_prof = _report_profile("train step", n_steps_prof, step_med,
+                                _profile(lambda: step(state, x1, y1), n_steps_prof), tag)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"memory: peak allocated {peak_gb:.2f} GB over the whole run {tag}")
     record.update(kernel_ms=kernel_ms, plain_ms=plain_ms, tick_ms=tick_med, bound_ms=bound,
-                  bound_ms_f32_cores=f32_cores_ms, bytes=nbytes, dft_flops=dft_flops,
-                  mel_flops=mel_flops, max_abs_err=errs)
+                  bound_ms_f32_cores=sbound["f32_cores_ms"], bytes=sbound["bytes"],
+                  dft_flops=sbound["dft_flops"], mel_flops=sbound["mel_flops"],
+                  max_abs_err=errs, tick_profile=tick_prof, train_step_ms=step_med,
+                  train_clips_per_s=clips_s, train_step_profile=step_prof,
+                  train_frontend={"ms": train_kernel_ms, "plain_ms": train_plain_ms,
+                                  "precision": tprec, "shape": list(w64.shape), **tbound},
+                  peak_memory_gb=peak_gb)
 
+    main_probe = f"{list(PROBE_CASES[0][0])} rows {PROBE_CASES[0][1]}"
     kernels = [{
         "name": "fused_log_mel_patches",
         "route": "cuda",
         "source": "mla_tpu_torch/csrc/fused_frontend.cu",
         "replaces": "mla_tpu/ops/pallas_frontend.py:154",
-        "launches": launches,
+        "launches": serve_launches + train_launches,
+        "launches_by_path": {"serve": serve_launches, "train": train_launches},
         "max_abs_err": errs[f"serve [8, 77120] {MAIN_PRECISION}"],
         "max_abs_err_by_case": errs,
         "ms": kernel_ms[MAIN_PRECISION],
@@ -337,15 +563,40 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound[MAIN_PRECISION],
         "bound_ms_by_precision": bound,
-        "bound_ms_f32_cores": f32_cores_ms,
-        "bound_by": "operations" if ops_ms[MAIN_PRECISION] >= bytes_ms else "bytes",
+        "bound_ms_f32_cores": sbound["f32_cores_ms"],
+        "bound_by": sbound["bound_by"][MAIN_PRECISION],
         "library_ms": None,
         "library_note": "no single PyTorch call computes framing, DFT magnitude, mel "
                         "product and log together",
         "precision": MAIN_PRECISION,
         "shape": [b, n],
+        "train": {"shape": list(w64.shape), "precision": tprec, "ms": train_kernel_ms,
+                  "plain_ms": train_plain_ms, "bound_ms": tbound["bound_ms"][tprec],
+                  "bound_by": tbound["bound_by"][tprec],
+                  "max_abs_err": errs[f"train [64, 64000] {tprec}"]},
         "tick_ms": tick_med,
+        "train_step_ms": step_med,
     }]
+    for k, line in (("scale2", 33), ("row_merge", 28)):
+        t = probe_ms[k][main_probe]
+        kernels.append({
+            "name": k,
+            "route": "cuda",
+            "source": "mla_tpu_torch/csrc/row_merge.cu",
+            "replaces": f"scripts/probe_mosaic_reshape.py:{line}",
+            "launches": probe_launches[k],
+            "max_abs_err": max(probe_errs[k].values()),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+            "library_call": "torch.mul(x, 2)" if k == "scale2" else "x.reshape(320, 480).clone()",
+            "shape": list(PROBE_CASES[0][0]),
+            "ms_by_shape": {s: v["ms"] for s, v in probe_ms[k].items()},
+            "library_ms_by_shape": {s: v["library_ms"] for s, v in probe_ms[k].items()},
+            "bound_ms_by_shape": {s: v["bound_ms"] for s, v in probe_ms[k].items()},
+        })
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as fh:
         json.dump({**record, "kernels": kernels}, fh, indent=1)

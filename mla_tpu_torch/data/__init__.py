@@ -1,1 +1,1 @@
-"""Wire quantizers (PCM16, mu-law)."""
+"""Wire quantizers (PCM16, mu-law), synthetic datasets, samplers, batch gather."""

@@ -5,12 +5,13 @@ arXiv:1803.02353 §2-§3).
 sequence, an ``AttentionModule`` pools over time, and the head variants
 differ in how many attention modules there are and where they attach.
 Dense layers compute in ``dtype``; gate and classifier logits are cast to
-f32 before any pooling. Inference only: dropout is the identity.
+f32 before any pooling. Dropout acts in train mode only, with a mask drawn
+from the generator the caller passes in; in eval mode it is the identity.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -19,22 +20,41 @@ from mla_tpu_torch.models.trunk import Dense
 from mla_tpu_torch.ops.attention_pool import attention_pool
 
 
+def dropout(h: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate). The mask comes from
+    ``generator`` (on ``h``'s device), never from the global generator."""
+    if rate == 0.0:
+        return h
+    if rate == 1.0:
+        return torch.zeros_like(h)
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator (pass generator=...)")
+    keep = 1.0 - rate
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros_like(h))
+
+
 class EmbeddedMapping(nn.Module):
-    """One level: ``layers_per_block`` x (Dense hidden_units + ReLU)."""
+    """One level: ``layers_per_block`` x (Dense hidden_units + ReLU + dropout)."""
 
     def __init__(self, in_features: int, hidden_units: int = 512, layers_per_block: int = 1,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, dropout_rate: float = 0.0):
         super().__init__()
         self.layers_per_block = layers_per_block
         self.compute_dtype = dtype
+        self.dropout_rate = dropout_rate
         for i in range(layers_per_block):
             self.add_module(f"fc{i}", Dense(in_features if i == 0 else hidden_units,
                                             hidden_units, dtype))
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = h.to(self.compute_dtype)
         for i in range(self.layers_per_block):
             h = torch.relu(getattr(self, f"fc{i}")(h))
+            if self.training:
+                h = dropout(h, self.dropout_rate, generator)
         return h
 
 

@@ -4,8 +4,10 @@ a deep CNN over each 96x64 log-mel patch -> one embedding per ~1 s segment.
 The public layout is the reference's NHWC ([B, H, W] or [B, H, W, 1] in);
 the module permutes to NCHW inside, PyTorch's native conv layout. Compute
 follows the flax modules: inputs and weights cast to ``dtype``, parameters
-stored in f32, batch norm evaluated in f32 from its running statistics and
-cast back. Inference only: batch norm always reads its running statistics.
+stored in f32, batch norm evaluated in f32 and cast back. In train mode
+(``module.train()``) batch norm normalizes with the batch's statistics and
+updates its running ones as flax does; in eval mode it reads the running
+statistics.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default epsilon
+_BN_MOMENTUM = 0.99  # flax convention: running = 0.99 * running + 0.01 * batch
 
 
 class Dense(nn.Linear):
@@ -32,13 +35,30 @@ class Dense(nn.Linear):
 
 
 class _BatchNorm(nn.BatchNorm2d):
-    """Eval-mode batch norm with flax's arithmetic: (x - mean) * (scale *
-    rsqrt(var + eps)) + bias in f32, result cast back to the input dtype."""
+    """Batch norm with flax's arithmetic: (x - mean) * (scale * rsqrt(var +
+    eps)) + bias in f32, result cast back to the input dtype.
+
+    Train mode takes mean and variance over (N, H, W) in f32 with flax
+    0.12's fast variance, max(0, E[x^2] - E[x]^2) (biased), and moves the
+    running statistics by ``_BN_MOMENTUM`` with that biased variance; this
+    is why the update is written here rather than left to F.batch_norm,
+    whose running variance is unbiased. ``num_batches_tracked`` is not
+    touched."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

@@ -38,6 +38,9 @@ class AudioTagger(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        if cfg.remat_trunk:
+            raise NotImplementedError(
+                "remat_trunk=True is not ported yet (ROADMAP.md queue A, item 8: remat)")
         dtype = getattr(torch, cfg.compute_dtype)
         if cfg.trunk == "cnn":
             self.trunk_module = CompactCNN(cfg.conv_channels, cfg.convs_per_stage,
@@ -60,7 +63,8 @@ class AudioTagger(nn.Module):
         d, h, c = cfg.embed_dim, cfg.hidden_units, cfg.n_classes
         for i in range(cfg.n_blocks):
             self.add_module(f"block{i}", EmbeddedMapping(d if i == 0 else h, h,
-                                                         cfg.layers_per_block, dtype))
+                                                         cfg.layers_per_block, dtype,
+                                                         cfg.dropout_rate))
         acts = (cfg.att_activation, cfg.cla_activation)
         if cfg.variant == "multi_level_attention":
             for i in range(cfg.n_blocks):
@@ -86,29 +90,33 @@ class AudioTagger(nn.Module):
         emb = self.trunk_module(x.reshape((b * t,) + tuple(x.shape[2:])))
         return emb.reshape(b, t, -1)
 
-    def head(self, h: torch.Tensor) -> torch.Tensor:
-        """[B, T, D] embeddings -> [B, C] clip probabilities."""
+    def head(self, h: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, T, D] embeddings -> [B, C] clip probabilities. In train mode
+        the blocks' dropout masks come from ``generator``."""
         variant = self.cfg.variant
         if variant == "multi_level_attention":
             zs: List[torch.Tensor] = []
             for i, block in enumerate(self._blocks()):
-                h = block(h)
+                h = block(h, generator)
                 zs.append(getattr(self, f"att{i}")(h))
             return torch.sigmoid(self.out(torch.cat(zs, dim=-1)))
         for block in self._blocks():
-            h = block(h)
+            h = block(h, generator)
         if variant == "single_attention":
             return self.att(h)
         if variant == "multi_attention":
             return self.mh(h)
         return self.pool(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.embed(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.head(self.embed(x), generator)
 
     def segment_logits(self, x: torch.Tensor):
         """Per-segment (gate, cla) f32 logits per level/head: the streaming
-        contract (the pool baselines emit a zero gate)."""
+        contract (the pool baselines emit a zero gate). Meant for eval mode,
+        as the reference runs it."""
         h = self.embed(x)
         variant = self.cfg.variant
         if variant == "multi_level_attention":
@@ -155,7 +163,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def build_model(cfg: ModelConfig, device=None, seed: Optional[int] = None) -> AudioTagger:
     """``AudioTagger`` on ``device`` (None = the card; raises without one
-    unless device="cpu") in eval mode; ``seed`` draws random weights from a
+    unless device="cpu") in eval mode (``.train()`` switches batch norm and
+    dropout to their train branches); ``seed`` draws random weights from a
     ``torch.Generator``, otherwise they are PyTorch's defaults and are meant
     to be replaced by ``load_state_dict``."""
     dev = resolve_device(device)

@@ -1,1 +1,2 @@
-"""Front-end (torch ops and the fused CUDA kernel), attention pooling, kernel build."""
+"""Front-end (torch ops and the fused CUDA kernel), the row-merge probe kernels,
+attention pooling, kernel build."""

@@ -9,7 +9,9 @@ it and how it is laid out.
 
 ``fused_log_mel_patches`` launches the kernel for a CUDA tensor (or raises)
 and takes its plain torch version, ``fused_log_mel_patches_reference``, only
-for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+for a CPU tensor. ``LAUNCHES`` counts kernel launches. It has no backward,
+as the reference has none: the train step applies it to data, outside
+autograd, and a waveform that requires grad is refused.
 """
 
 from __future__ import annotations
@@ -85,6 +87,9 @@ def fused_log_mel_patches(
         raise TypeError(f"wav must be float32, got {wav.dtype}")
     if not wav.is_contiguous():
         raise ValueError("wav must be contiguous")
+    if wav.requires_grad:  # the kernel has no backward; never cut a gradient silently
+        raise RuntimeError("fused_log_mel_patches has no backward: pass a waveform that "
+                           "does not require grad (the train step runs it under no_grad)")
     b, n_samples = wav.shape
     window, hop, used_frames, n_patches, _, _ = _framing_plan(cfg, n_samples)
     if wav.device.type == "cpu":

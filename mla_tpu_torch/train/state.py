@@ -1,0 +1,222 @@
+"""Train state and the train / eval step functions (counterpart of
+``mla_tpu/train/state.py``).
+
+One train step: decode the staged wire form -> front-end (outside autograd;
+``impl="pallas"`` launches the fused kernel) -> train-mode forward (batch
+statistics, dropout) -> BCE -> backward -> global-norm clip -> Adam at the
+scheduled learning rate -> EMA. PyTorch updates in place, so the step
+mutates the ``TrainState`` it is given and returns it with the loss.
+
+The optimizer reproduces the reference's optax chain: Adam with beta
+0.9 / 0.999 and eps 1e-8 computes lr * m_hat / (sqrt(v_hat) + eps) with the
+same bias corrections in both libraries; the learning-rate schedules and the
+clipping rule are own copies of optax's, since ``torch.optim.lr_scheduler``
+and ``clip_grad_norm_`` (which adds 1e-6 to the norm) differ from them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mla_tpu_torch.config import Config
+from mla_tpu_torch.data.audio_io import mulaw_decode
+from mla_tpu_torch.models.zoo import AudioTagger
+from mla_tpu_torch.ops import frontend as fe
+
+_EPS = 1e-7
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+@dataclass
+class TrainState:
+    step: int  # updates done so far
+    model: AudioTagger
+    optimizer: torch.optim.Adam
+    # Polyak/EMA shadow of the parameters by name (None when
+    # train.ema_decay == 0); eval reads it when train.ema_eval is set
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+
+def bce_loss(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Multi-label binary cross-entropy over probabilities, clipped to
+    [1e-7, 1 - 1e-7] in f32, mean over all elements."""
+    p = probs.float().clamp(_EPS, 1.0 - _EPS)
+    t = targets.float()
+    return -torch.mean(t * torch.log(p) + (1.0 - t) * torch.log1p(-p))
+
+
+def lr_schedule(cfg: Config) -> Callable[[int], float]:
+    """The learning rate at 0-based update count t, as optax's schedules
+    give it: constant; cosine lr * 0.5 * (1 + cos(pi * min(t, T) / T)) with
+    T = num_steps; exponential lr * rate ** (t / 1000), not staircase; a
+    linear warmup from 0 over ``warmup_steps``, after which the main
+    schedule runs at t - warmup_steps."""
+    t_cfg = cfg.train
+    lr = t_cfg.learning_rate
+    if t_cfg.lr_schedule == "constant":
+        def main(t):
+            return lr
+    elif t_cfg.lr_schedule == "cosine":
+        decay = float(max(t_cfg.num_steps, 1))
+
+        def main(t):
+            return lr * 0.5 * (1.0 + math.cos(math.pi * min(t, decay) / decay))
+    elif t_cfg.lr_schedule == "exponential":
+        def main(t):
+            return lr if t <= 0 else lr * t_cfg.lr_decay_rate ** (t / 1000.0)
+    else:
+        raise ValueError(f"unknown lr_schedule {t_cfg.lr_schedule!r}")
+    warm = t_cfg.warmup_steps
+    if warm <= 0:
+        return main
+
+    def joined(t):
+        if t < warm:
+            return -lr * (1.0 - min(max(t, 0), warm) / warm) + lr
+        return main(t - warm)
+
+    return joined
+
+
+def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Adam:
+    """Adam over ``params``; the train step sets each update's learning
+    rate from :func:`lr_schedule` before it steps."""
+    return torch.optim.Adam(params, lr=lr_schedule(cfg)(0), betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place: scale every gradient by
+    max_norm / ||g|| only when ||g|| >= max_norm. Returns ||g||. Decided on
+    the device, so the host does not wait for the norm."""
+    g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    keep = g_norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / g_norm * max_norm))
+    return g_norm
+
+
+def create_train_state(cfg: Config, model: AudioTagger) -> TrainState:
+    """Step 0, a fresh optimizer over ``model``'s parameters (initialized
+    by the caller, e.g. ``build_model(..., seed=cfg.train.seed)``) and the
+    EMA shadow when enabled."""
+    ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+           if cfg.train.ema_decay > 0 else None)
+    return TrainState(step=0, model=model, optimizer=make_optimizer(cfg, model.parameters()),
+                      ema_params=ema)
+
+
+def decode_staged(x: torch.Tensor, stage: str,
+                  clip_samples: Optional[int] = None) -> torch.Tensor:
+    """Device-side decode of a staged waveform batch (DataConfig.staging_dtype
+    wire form) -> float32 [-1, 1]. A float32 input passes through whatever
+    ``stage`` says: floats are never wire form."""
+    if x.dtype == torch.float32:
+        return x
+    if stage == "int16":
+        return x.to(torch.float32) / 32768.0
+    if stage == "uint8":
+        return mulaw_decode(x)
+    if stage == "adpcm4":
+        raise NotImplementedError(
+            "staging_dtype='adpcm4' is not ported yet (ROADMAP.md queue A, item 2)")
+    return x
+
+
+def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator a train step draws its dropout masks from: a pure
+    function of (train.seed, step), so a resumed run draws the same masks."""
+    mixed = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def make_train_step(
+    cfg: Config, model: AudioTagger, input_kind: str, clip_samples: Optional[int] = None,
+) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
+    """(state, x, y) -> (state, loss), updating ``state`` in place. x is a
+    waveform [B, n] (float32 or the staged wire form) or a feature sequence
+    [B, T, D] per ``input_kind``; the loss stays on the device."""
+    t_cfg = cfg.train
+    if t_cfg.mixup_alpha > 0:
+        raise NotImplementedError(
+            "train.mixup_alpha > 0 is not ported yet (ROADMAP.md queue A, item 8: ops/augment.py)")
+    if t_cfg.spec_augment and input_kind in ("waveform", "patches"):
+        raise NotImplementedError(
+            "train.spec_augment is not ported yet (ROADMAP.md queue A, item 8: ops/augment.py)")
+    front_cfg = cfg.frontend
+    if t_cfg.frontend_precision is not None:
+        front_cfg = dataclasses.replace(front_cfg, precision=t_cfg.frontend_precision)
+    sched = lr_schedule(cfg)
+    params = [p for p in model.parameters()]
+    names = [n for n, _ in model.named_parameters()]
+
+    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        if input_kind == "waveform":
+            with torch.no_grad():  # data transform: no gradient reaches the front-end
+                x_in = fe.apply_frontend(decode_staged(x, cfg.data.staging_dtype, clip_samples),
+                                         front_cfg)
+        else:
+            x_in = x
+        gen = dropout_generator(t_cfg.seed, state.step, x_in.device)
+        model.train()
+        loss = bce_loss(model(x_in, gen), y)
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if t_cfg.gradient_clip_norm > 0:
+            clip_by_global_norm_([p.grad for p in params if p.grad is not None],
+                                 t_cfg.gradient_clip_norm)
+        for group in opt.param_groups:
+            group["lr"] = sched(state.step)
+        opt.step()
+        if state.ema_params is not None:
+            d = t_cfg.ema_decay
+            with torch.no_grad():
+                for n, p in zip(names, params):
+                    e = state.ema_params[n]
+                    e.copy_(d * e + (1.0 - d) * p)
+        state.step += 1
+        return state, loss.detach()
+
+    return step
+
+
+def eval_params(cfg: Config, state: TrainState) -> Optional[Dict[str, torch.Tensor]]:
+    """The parameters eval should read in place of the online ones: the EMA
+    shadow when enabled (train.ema_decay > 0 and train.ema_eval), else None
+    (the online parameters)."""
+    if cfg.train.ema_decay > 0 and cfg.train.ema_eval and state.ema_params is not None:
+        return state.ema_params
+    return None
+
+
+def variables_from_state(state: TrainState, params: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The model's ``state_dict`` (parameters and batch-norm statistics) with
+    ``params`` (e.g. the EMA shadow) in place of the online parameters."""
+    variables = dict(state.model.state_dict())
+    if params is not None:
+        variables.update(params)
+    return variables
+
+
+def make_eval_step(cfg: Config, model: AudioTagger, input_kind: str):
+    """(state, x) -> f32 probs in eval mode (running batch-norm statistics,
+    no dropout; the EMA parameters when enabled)."""
+
+    @torch.no_grad()
+    def step(state: TrainState, x: torch.Tensor) -> torch.Tensor:
+        if input_kind == "waveform":
+            x = fe.apply_frontend(x, cfg.frontend)
+        model.eval()
+        variables = variables_from_state(state, eval_params(cfg, state))
+        return torch.func.functional_call(model, variables, (x,)).float()
+
+    return step

@@ -33,7 +33,7 @@ def test_port_modules_import_no_jax_and_nothing_of_mla_tpu():
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.splitlines()
-    assert int(n_modules) >= 14  # every module of the slice was imported
+    assert int(n_modules) >= 30  # every module of both slices was imported
     assert loaded == ""
 
 
