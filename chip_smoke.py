@@ -11,9 +11,12 @@ printing its last line:
   3. each kernel against its plain torch version on the card: the fused
      front-end at the serving and training shapes and a few others, per
      precision mode, and against the front-end golden file (TF32 off); the
-     row-merge probe's two kernels bit-exact at three shapes;
+     row-merge probe's kernels bit-exact at five cases (three aligned shapes
+     up to [16384, 4096], an odd [33, 7], and a view that starts one float
+     into its buffer), each case launching the row-merge variant
+     (row_merge_bulk or row_merge_generic) that row_merge_variant names;
   4. the probe entry point (python -m mla_tpu_torch.probe_row_merge): its
-     verdict must be "supported", through both probe kernels;
+     verdict must be "supported", through scale2 and row_merge_bulk;
   5. the serving path at full width: BatchedStreamingServer on the
      streaming_inference preset with frontend.impl="pallas", random weights
      from a seeded torch.Generator through the flat weight format, 8 int16
@@ -28,7 +31,9 @@ printing its last line:
      loss on the kernel against the torch-ops front-end;
   7. times (median of 30 after warm-up): each kernel, its plain version and
      the library call where one exists, with CUDA events (the probe
-     kernels on inputs that are not in the L2 cache); one server tick
+     kernels on inputs that are not in the L2 cache, at every case but
+     [33, 7], with row_merge_generic also timed at the aligned shapes,
+     where the wrapper takes row_merge_bulk); one server tick
      and one train step on the host clock; each kernel's bound; and
      torch.profiler breakdowns of ten ticks and five train steps.
 Launch counts are set to 0 just before each path (probe, serving,
@@ -44,7 +49,6 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import io
-import itertools
 import json
 import os
 import shutil
@@ -71,37 +75,22 @@ BF16_SCORE_BUDGET = 2e-2  # scores, pallas vs torch-ops front-end under bf16 com
 # only where that flips a bf16 rounding (3.4e-5 measured on an H100)
 BF16_LOSS_BUDGET = 1e-3
 MAIN_PRECISION = "default"  # the streaming_inference preset's front-end precision
-PROBE_CASES = (((960, 160), 3), ((4096, 1024), 4), ((33, 7), 3))  # (shape, rows)
+# (shape, rows, offset in floats of x into its buffer, the row-merge variant
+# it must take); the first is the probe's own
+PROBE_CASES = (((960, 160), 3, 0, "bulk"), ((4096, 1024), 4, 0, "bulk"),
+               ((16384, 4096), 4, 0, "bulk"), ((33, 7), 3, 0, "generic"),
+               ((960, 160), 3, 1, "generic"))
+PROBE_TIMED = tuple(c for c in PROBE_CASES if c[0] != (33, 7))
 TRAIN_CUT = {"train.num_steps": 30, "train.eval_every": 15,
              "train.checkpoint_every": 15, "train.log_every": 5}
 # (substring of the CUDA symbol, kernel): the port's own kernels are launched
 # through ctypes, outside any operator, so the profiler is read by name
 PORT_KERNELS = (("fused_log_mel", "fused_log_mel_patches"), ("scale2_kernel", "scale2"),
-                ("row_merge_kernel", "row_merge"))
-SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: longer than queueing a burst
-L2_BYTES = 50e6  # the H100's L2 cache
+                ("row_merge_bulk", "row_merge"), ("row_merge_generic", "row_merge"))
 
 
-def _median_ms(fn, reps: int = REPS, inner: int = 10, warmup: int = 3) -> float:
-    """Median device time of one fn() call in ms: CUDA events around each of
-    ``reps`` bursts of ``inner`` back-to-back calls. A spin kernel queued
-    ahead of each burst holds the stream while the host queues the whole
-    burst, so the events time the device's work, not the host's launch
-    rate (a ~1 us kernel launched through ctypes would otherwise measure
-    the host)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+def _probe_key(shape, rows, offset) -> str:
+    return f"{list(shape)} rows {rows}" + (f" view +{offset} float" if offset else "")
 
 
 def _host_median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -243,6 +232,7 @@ def main() -> int:
     from mla_tpu_torch.serve.server import BatchedStreamingServer
     from mla_tpu_torch.train import loop
     from mla_tpu_torch.train.state import create_train_state, make_train_step
+    from mla_tpu_torch.utils.cuda_timing import device_median_ms, l2_cold
 
     record = {}
 
@@ -315,18 +305,28 @@ def main() -> int:
         raise RuntimeError(f"kernel disagrees with the front-end golden: {err}")
 
     probe_errs = {"scale2": {}, "row_merge": {}}
-    for shape, rows in PROBE_CASES:
-        x = torch.randn(shape, generator=gen).cuda()
+    for shape, rows, offset, variant in PROBE_CASES:
+        key = _probe_key(shape, rows, offset)
+        # a contiguous view `offset` floats into its buffer
+        x = torch.randn(shape[0] * shape[1] + offset, generator=gen).cuda()[offset:].view(shape)
+        before = dict(rm.LAUNCHES)
         got = {"scale2": rm.scale2(x), "row_merge": rm.row_merge(x, rows)}
         torch.cuda.synchronize()
+        launched = [k for k, v in rm.LAUNCHES.items() if v != before[k]]
+        named = rm.row_merge_variant(shape, rows, x.data_ptr(), got["row_merge"].data_ptr())
+        if named != variant or launched != ["scale2", f"row_merge_{named}"]:
+            raise RuntimeError(f"{key}: launched {launched}; row_merge_variant names {named}, "
+                               f"the case expects {variant}")
         want = {"scale2": rm.scale2_reference(x), "row_merge": rm.row_merge_reference(x, rows)}
         for k in got:
             if got[k].shape != want[k].shape:
-                raise RuntimeError(f"{k} {list(shape)}: shape {tuple(got[k].shape)}")
-            probe_errs[k][f"{list(shape)} rows {rows}"] = float((got[k] - want[k]).abs().max())
+                raise RuntimeError(f"{k} {key}: shape {tuple(got[k].shape)}")
+            probe_errs[k][key] = float((got[k] - want[k]).abs().max())
             if not torch.equal(got[k], want[k]):
-                raise RuntimeError(f"{k} {list(shape)} rows {rows} is not bit-exact")
-            print(f"kernel vs plain, {k} {list(shape)} rows {rows}: bit-exact")
+                raise RuntimeError(f"{k} {key} is not bit-exact")
+            kernel = "scale2" if k == "scale2" else f"row_merge_{named}"
+            print(f"kernel vs plain, {k} {key}: {kernel}, bit-exact")
+        del x, got, want
     record["probe_max_abs_err"] = probe_errs
 
     # 4. the probe entry point
@@ -341,8 +341,9 @@ def main() -> int:
     print(f"probe: {json.dumps(probe_line)}; launches {probe_launches}")
     if probe_line["verdict"] != "supported" or probe_line["platform"] != "cuda":
         raise RuntimeError(f"row-merge probe on the card: {probe_line}")
-    if min(probe_launches.values()) < 1:
-        raise RuntimeError(f"the probe did not go through both kernels: {probe_launches}")
+    if probe_launches["scale2"] < 1 or probe_launches["row_merge_bulk"] < 1:
+        raise RuntimeError(f"the probe did not go through scale2 and row_merge_bulk: "
+                           f"{probe_launches}")
     record.update(probe=probe_line, probe_launches=probe_launches)
 
     # 5. the serving path at full width
@@ -455,11 +456,12 @@ def main() -> int:
     # 7. times
     # the fused front-end at the serving shape, each mode, and its plain version
     wav = (torch.randn((8, srv.chunk_samples), generator=gen) * 0.1).cuda()
-    kernel_ms = {p: _median_ms(lambda p=p: ff.fused_log_mel_patches(wav, scfg.frontend, p))
-                 for p in TOL}
+    kernel_ms = {
+        p: device_median_ms(lambda p=p: ff.fused_log_mel_patches(wav, scfg.frontend, p))
+        for p in TOL}
     for p, ms in kernel_ms.items():
         print(f"time: fused_log_mel_patches {p} [8, {srv.chunk_samples}]: {ms:.4f} ms {tag}")
-    plain_ms = _median_ms(
+    plain_ms = device_median_ms(
         lambda: ff.fused_log_mel_patches_reference(wav, scfg.frontend, MAIN_PRECISION))
     print(f"time: plain version {MAIN_PRECISION} [8, {srv.chunk_samples}]: {plain_ms:.4f} ms {tag}")
     b, n = wav.shape
@@ -479,8 +481,9 @@ def main() -> int:
     # the fused front-end at the training shape, at the preset's precision
     tprec = tcfg.frontend.precision
     w64 = (torch.randn((bs, x1.shape[1]), generator=gen) * 0.1).cuda()
-    train_kernel_ms = _median_ms(lambda: ff.fused_log_mel_patches(w64, tcfg.frontend, tprec))
-    train_plain_ms = _median_ms(
+    train_kernel_ms = device_median_ms(
+        lambda: ff.fused_log_mel_patches(w64, tcfg.frontend, tprec))
+    train_plain_ms = device_median_ms(
         lambda: ff.fused_log_mel_patches_reference(w64, tcfg.frontend, tprec))
     tbound = _frontend_bound(ff, trimmed_spectral_bases, tcfg.frontend, *w64.shape)
     print(f"time: fused_log_mel_patches {tprec} {list(w64.shape)}: {train_kernel_ms:.4f} ms, "
@@ -489,32 +492,51 @@ def main() -> int:
           f"{tbound['mel_flops'] / 1e9:.4f} GFLOP mel, {tbound['bytes'] / 1e6:.3f} MB), "
           f"{tbound['bound_ms'][tprec] / train_kernel_ms:.4f} of bound {tag}")
 
-    # the probe kernels, at each probe shape, beside the library call; each
+    # the probe kernels, at each timed case, beside the library call; each
     # call reads the next of enough copies of its input to fill the L2 twice,
-    # so it finds its input in device memory, as the probe's one call does
+    # so it finds its input in device memory, as the probe's one call does.
+    # Where the wrapper takes row_merge_bulk, row_merge_generic (the earlier
+    # design) is timed too, launched directly so that it counts no launch.
     probe_ms = {"scale2": {}, "row_merge": {}}
-    for shape, rows in PROBE_CASES[:2]:
+    for shape, rows, offset, variant in PROBE_TIMED:
         x = torch.randn(shape, generator=gen).cuda()
-        copies = [x.clone() for _ in range(max(2, int(-(-2 * L2_BYTES // (4 * x.numel())))))]
-        nxt = itertools.cycle(copies).__next__
-        merged = (shape[0] // rows, rows * shape[1])
-        key = f"{list(shape)} rows {rows}"
+        nxt, n_copies = l2_cold(x, offset)
         nbytes = rm.bytes_moved(x)
+        del x
+        merged = (shape[0] // rows, rows * shape[1])
+        key = _probe_key(shape, rows, offset)
+
+        def generic():
+            xi = nxt()
+            out = torch.empty(merged, device=xi.device)
+            rm._launch("mla_row_merge_generic", xi, out, *shape, rows)
+            return out
+
         for k, kern, plain, lib in (
                 ("scale2", lambda: rm.scale2(nxt()), lambda: rm.scale2_reference(nxt()),
                  lambda: torch.mul(nxt(), 2)),
                 ("row_merge", lambda: rm.row_merge(nxt(), rows),
                  lambda: rm.row_merge_reference(nxt(), rows),
                  lambda: nxt().reshape(merged).clone())):
-            t = {"ms": _median_ms(kern, inner=20), "plain_ms": _median_ms(plain, inner=20),
-                 "library_ms": _median_ms(lib, inner=20),
+            t = {"ms": device_median_ms(kern, inner=20),
+                 "plain_ms": device_median_ms(plain, inner=20),
+                 "library_ms": device_median_ms(lib, inner=20),
                  "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes,
-                 "input_copies": len(copies)}
+                 "input_copies": n_copies,
+                 "kernel": "scale2" if k == "scale2" else f"row_merge_{variant}"}
+            if k == "row_merge" and variant == "bulk":
+                t["generic_ms"] = device_median_ms(generic, inner=20)
             probe_ms[k][key] = t
-            print(f"time: {k} {key}: {t['ms'] * 1e3:.2f} us, plain version "
-                  f"{t['plain_ms'] * 1e3:.2f} us, library {t['library_ms'] * 1e3:.2f} us, "
+            print(f"time: {k} {key}: {t['kernel']} {t['ms'] * 1e3:.3f} us, plain version "
+                  f"{t['plain_ms'] * 1e3:.3f} us, library {t['library_ms'] * 1e3:.3f} us, "
                   f"bound {t['bound_ms'] * 1e3:.3f} us ({nbytes / 1e6:.4f} MB at "
-                  f"{PEAK_BYTES / 1e12:g} TB/s), {t['bound_ms'] / t['ms']:.4f} of bound {tag}")
+                  f"{PEAK_BYTES / 1e12:g} TB/s); {t['bound_ms'] / t['ms']:.4f} of bound, "
+                  f"kernel / library {t['ms'] / t['library_ms']:.4f} {tag}")
+            if "generic_ms" in t:
+                print(f"time: row_merge {key}: row_merge_generic {t['generic_ms'] * 1e3:.3f} us, "
+                      f"{t['bound_ms'] / t['generic_ms']:.4f} of bound, kernel / library "
+                      f"{t['generic_ms'] / t['library_ms']:.4f} {tag}")
+        del nxt
     record.update(probe_ms=probe_ms)
 
     # one server tick, host clock, and its profile
@@ -548,7 +570,7 @@ def main() -> int:
                                   "precision": tprec, "shape": list(w64.shape), **tbound},
                   peak_memory_gb=peak_gb)
 
-    main_probe = f"{list(PROBE_CASES[0][0])} rows {PROBE_CASES[0][1]}"
+    main_probe = _probe_key(*PROBE_CASES[0][:3])
     kernels = [{
         "name": "fused_log_mel_patches",
         "route": "cuda",
@@ -579,12 +601,15 @@ def main() -> int:
     }]
     for k, line in (("scale2", 33), ("row_merge", 28)):
         t = probe_ms[k][main_probe]
+        by_variant = {"scale2": probe_launches["scale2"]} if k == "scale2" else {
+            v: probe_launches[f"row_merge_{v}"] for v in ("bulk", "generic")}
         kernels.append({
             "name": k,
             "route": "cuda",
             "source": "mla_tpu_torch/csrc/row_merge.cu",
             "replaces": f"scripts/probe_mosaic_reshape.py:{line}",
-            "launches": probe_launches[k],
+            "launches": sum(by_variant.values()),
+            "launches_by_variant": by_variant,
             "max_abs_err": max(probe_errs[k].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -593,9 +618,13 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library_call": "torch.mul(x, 2)" if k == "scale2" else "x.reshape(320, 480).clone()",
             "shape": list(PROBE_CASES[0][0]),
+            "kernel_by_shape": {s: v["kernel"] for s, v in probe_ms[k].items()},
             "ms_by_shape": {s: v["ms"] for s, v in probe_ms[k].items()},
+            "plain_ms_by_shape": {s: v["plain_ms"] for s, v in probe_ms[k].items()},
             "library_ms_by_shape": {s: v["library_ms"] for s, v in probe_ms[k].items()},
             "bound_ms_by_shape": {s: v["bound_ms"] for s, v in probe_ms[k].items()},
+            **({"generic_ms_by_shape": {s: v["generic_ms"] for s, v in probe_ms[k].items()
+                                        if "generic_ms" in v}} if k == "row_merge" else {}),
         })
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as fh:

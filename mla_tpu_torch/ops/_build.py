@@ -44,15 +44,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _compile(name: str) -> None:
-    lib = library_path(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(src: Path, lib: Path, extra_flags: Sequence[str] = ()) -> None:
+    """nvcc src -> lib with the port's flags (plus ``extra_flags``), the
+    ptxas report beside it as ``<lib>.log``."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
+        raise RuntimeError(f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
                            f"{proc.stderr}{proc.stdout}")
     lib.with_suffix(".log").write_text(proc.stderr + proc.stdout)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
@@ -67,7 +68,7 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     if lib is not None:
         return lib
     if not library_path(name).exists():
-        _compile(name)
+        compile_library(CSRC / f"{name}.cu", library_path(name))
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = list(argtypes)

@@ -1,4 +1,4 @@
-"""The row-merge probe's two kernels (``csrc/row_merge.cu``), ports of the
+"""The row-merge probe's kernels (``csrc/row_merge.cu``), ports of the
 Pallas kernels in ``scripts/probe_mosaic_reshape.py``:
 
   ``scale2(x)``           ``control_kernel``: x * 2;
@@ -6,9 +6,13 @@ Pallas kernels in ``scripts/probe_mosaic_reshape.py``:
                           [R, C] -> [R / rows, rows * C], with
                           out[r, j * C + c] = x[rows * r + j, c].
 
+``row_merge`` has two kernels, chosen by ``row_merge_variant`` from the shape
+and the two pointers: ``row_merge_bulk`` (TMA bulk copies, which need 16-byte
+alignment) and ``row_merge_generic`` (one element per thread) for the rest.
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes its
 plain torch version (``scale2_reference``, ``row_merge_reference``) only for
-a CPU tensor. ``LAUNCHES`` counts kernel launches per kernel.
+a CPU tensor. ``LAUNCHES`` counts kernel launches per kernel and variant.
 """
 
 from __future__ import annotations
@@ -19,10 +23,13 @@ import torch
 
 from mla_tpu_torch.ops import _build
 
-LAUNCHES = {"scale2": 0, "row_merge": 0}  # kernel launches, for showing a run went through them
+# kernel launches, for showing a run went through them
+LAUNCHES = {"scale2": 0, "row_merge_bulk": 0, "row_merge_generic": 0}
 
 _P, _L = ctypes.c_void_p, ctypes.c_int64
-_SIGNATURES = {"mla_scale2": [_P, _P, _L, _P], "mla_row_merge": [_P, _P, _L, _L, _L, _P]}
+_SIGNATURES = {"mla_scale2": [_P, _P, _L, _P],
+               "mla_row_merge_bulk": [_P, _P, _L, _L, _L, _P],
+               "mla_row_merge_generic": [_P, _P, _L, _L, _L, _P]}
 
 
 def _check(x: torch.Tensor, name: str) -> None:
@@ -70,6 +77,17 @@ def _merged_shape(x: torch.Tensor, rows: int):
     return r // rows, rows * c
 
 
+def row_merge_variant(shape, rows: int, x_ptr: int, out_ptr: int) -> str:
+    """Which kernel merges a [R, C] float32 buffer at ``x_ptr`` into
+    ``out_ptr``: "bulk" when every bulk copy can be 16-byte aligned (a source
+    row of C * 4 bytes, hence also an output row of rows * C * 4, is a
+    multiple of 16, and both buffers start on a 16-byte boundary), else
+    "generic"."""
+    _, c = shape
+    aligned = (4 * c) % 16 == 0 and (4 * rows * c) % 16 == 0
+    return "bulk" if aligned and x_ptr % 16 == 0 and out_ptr % 16 == 0 else "generic"
+
+
 def row_merge_reference(x: torch.Tensor, rows: int) -> torch.Tensor:
     """The row-merge kernel's plain torch version: a reshape, copied."""
     return x.reshape(_merged_shape(x, rows)).clone()
@@ -83,8 +101,9 @@ def row_merge(x: torch.Tensor, rows: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return row_merge_reference(x, rows)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    _launch("mla_row_merge", x, out, x.shape[0], x.shape[1], rows)
-    LAUNCHES["row_merge"] += 1
+    variant = row_merge_variant(x.shape, rows, x.data_ptr(), out.data_ptr())
+    _launch(f"mla_row_merge_{variant}", x, out, x.shape[0], x.shape[1], rows)
+    LAUNCHES[f"row_merge_{variant}"] += 1
     return out
 
 
