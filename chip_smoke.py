@@ -9,8 +9,10 @@ printing its last line:
   2. build: every kernel source in mla_tpu_torch/csrc, one nvcc each, all
      started together, timed, with nvcc's ptxas report;
   3. each kernel against its plain torch version on the card: the fused
-     front-end at the serving and training shapes and a few others, per
-     precision mode, and against the front-end golden file (TF32 off); the
+     front-end, both variants (mma, the tensor-core kernel the main path
+     takes, and simt, the first design), at the serving and training shapes
+     and a few others, per precision mode, and against the front-end golden
+     file (TF32 off); the
      row-merge probe's kernels bit-exact at five cases (three aligned shapes
      up to [16384, 4096], an odd [33, 7], and a view that starts one float
      into its buffer), each case launching the row-merge variant
@@ -21,16 +23,19 @@ printing its last line:
      streaming_inference preset with frontend.impl="pallas", random weights
      from a seeded torch.Generator through the flat weight format, 8 int16
      streams of ~20-30 s fed in uneven blocks, ticks, flushes and scores;
-     the front-end kernel must run once per device step, and the scores
-     must agree with the same server on the torch-ops front-end;
+     the front-end kernel must run once per device step, every launch on
+     the mma variant, and the scores must agree with the same server on the
+     torch-ops front-end;
   6. the training path at full width: fit() on the us8k_fused_frontend
      preset as shipped (front-end kernel at "highest", batch 64 of 4 s
      clips), cut only in num_steps / eval_every / checkpoint_every; finite
-     losses, one front-end launch per train step and per eval batch,
-     resume() restoring exactly the trained weights, and the first step's
+     losses, one front-end launch per train step and per eval batch, every
+     launch on the mma variant, resume() restoring exactly the trained weights, and the first step's
      loss on the kernel against the torch-ops front-end;
   7. times (median of 30 after warm-up): each kernel, its plain version and
-     the library call where one exists, with CUDA events (the probe
+     the library call where one exists, with CUDA events (the front-end's
+     two variants per mode at the serving and training shapes, and the mma
+     variant at each frame tile; the probe
      kernels on inputs that are not in the L2 cache, at every case but
      [33, 7], with row_merge_generic also timed at the aligned shapes,
      where the wrapper takes row_merge_bulk); one server tick
@@ -64,9 +69,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 REPS = 30
 # published H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores,
-# bf16 on the tensor cores, HBM3 bandwidth
+# bf16 and TF32 on the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_TF32_TC_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 TOL = {"highest": 2e-4, "bf16x3": 5e-4, "default": 1e-3}  # kernel vs plain version
 BF16_SCORE_BUDGET = 2e-2  # scores, pallas vs torch-ops front-end under bf16 compute
@@ -75,6 +81,7 @@ BF16_SCORE_BUDGET = 2e-2  # scores, pallas vs torch-ops front-end under bf16 com
 # only where that flips a bf16 rounding (3.4e-5 measured on an H100)
 BF16_LOSS_BUDGET = 1e-3
 MAIN_PRECISION = "default"  # the streaming_inference preset's front-end precision
+VARIANTS = ("mma", "simt")  # the front-end kernel's; the main path takes mma
 # (shape, rows, offset in floats of x into its buffer, the row-merge variant
 # it must take); the first is the probe's own
 PROBE_CASES = (((960, 160), 3, 0, "bulk"), ((4096, 1024), 4, 0, "bulk"),
@@ -169,7 +176,9 @@ def _frontend_bound(ff, trimmed_spectral_bases, fcfg, b: int, n: int) -> dict:
     """The fused front-end's least time on this card for a [b, n] batch, per
     precision mode: the larger of its bytes (waveform span once, log-mel
     once, bases once) over the memory rate and its operations over the peak
-    of their operand type."""
+    of their route. "highest" is f32-accurate by 3xTF32 (three TF32 passes)
+    on the tensor cores, the cheapest route to its accuracy, so its bound
+    takes that route; the all-f32-CUDA-core bound is kept beside it."""
     _, _, frames, _, _, _ = ff._framing_plan(fcfg, n)
     cos_b, _, mel_t, n_bins = trimmed_spectral_bases(fcfg)
     k, m = cos_b.shape[0], fcfg.num_mel_bins
@@ -177,9 +186,9 @@ def _frontend_bound(ff, trimmed_spectral_bases, fcfg, b: int, n: int) -> dict:
     mel_flops = 2 * b * frames * n_bins * m
     nbytes = ff.frontend_bytes_moved(b, n, fcfg) + 4 * (2 * cos_b.size + mel_t.size)
     bytes_ms = nbytes / PEAK_BYTES * 1e3
-    # the DFT's products are f32 in "highest", one bf16 pass in "default"
-    # and three in "bf16x3"; the mel product is f32 in every mode
-    dft_peak_passes = {"highest": (PEAK_F32_FLOPS, 1), "default": (PEAK_BF16_TC_FLOPS, 1),
+    # the DFT's products are three TF32 passes in "highest", one bf16 pass
+    # in "default" and three in "bf16x3"; the mel product is f32 in every mode
+    dft_peak_passes = {"highest": (PEAK_TF32_TC_FLOPS, 3), "default": (PEAK_BF16_TC_FLOPS, 1),
                        "bf16x3": (PEAK_BF16_TC_FLOPS, 3)}
     ops_ms = {p: (passes * dft_flops / peak + mel_flops / PEAK_F32_FLOPS) * 1e3
               for p, (peak, passes) in dft_peak_passes.items()}
@@ -281,28 +290,39 @@ def main() -> int:
              ("10 s batch [4, 160000]", (4, 160000), cfg), ("1-D [160000]", (160000,), cfg),
              ("0.5 s patches [2, 64000]", (2, 64000), geo),
              ("22.05 kHz [2, 88200]", (2, 88200), sr22)]
-    errs = {}
+    # errs[variant]["<case> <precision>"]: max |kernel - plain version|
+    errs = {v: {} for v in VARIANTS}
     for label, shape, c in cases:
         wav = (torch.randn(shape, generator=gen) * 0.1).cuda()
         for prec, tol in TOL.items():
-            out = ff.fused_log_mel_patches(wav, c, prec)
-            torch.cuda.synchronize()
             ref = ff.fused_log_mel_patches_reference(wav, c, prec)
-            if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
-                raise RuntimeError(f"kernel {label} {prec}: shape {tuple(out.shape)} or non-finite")
-            err = float((out - ref).abs().max())
-            errs[f"{label} {prec}"] = err
-            print(f"kernel vs plain, {label}, {prec}: max |diff| {err:.3e} (tol {tol:g})")
-            if err > tol:
-                raise RuntimeError(f"kernel disagrees with its plain version: {label} {prec} {err}")
+            for variant in VARIANTS:
+                before = dict(ff.LAUNCHES_BY_VARIANT)
+                out = ff.fused_log_mel_patches(wav, c, prec, _variant=variant)
+                torch.cuda.synchronize()
+                if ff.LAUNCHES_BY_VARIANT[variant] != before[variant] + 1:
+                    raise RuntimeError(f"{label} {prec}: the {variant} variant did not launch")
+                if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+                    raise RuntimeError(f"kernel {variant} {label} {prec}: shape "
+                                       f"{tuple(out.shape)} or non-finite")
+                err = float((out - ref).abs().max())
+                errs[variant][f"{label} {prec}"] = err
+                print(f"kernel vs plain, {variant}, {label}, {prec}: max |diff| {err:.3e} "
+                      f"(tol {tol:g})")
+                if err > tol:
+                    raise RuntimeError(f"kernel {variant} disagrees with its plain version: "
+                                       f"{label} {prec} {err}")
     golden = np.load(os.path.join(ROOT, "tests", "golden", "frontend_golden.npz"))
-    out = ff.fused_log_mel_patches(torch.from_numpy(golden["wav"]).cuda(), cfg, "highest")
-    torch.cuda.synchronize()
-    err = float(np.abs(out.cpu().numpy() - golden["patches"]).max())
-    errs["golden highest"] = err
-    print(f"kernel vs tests/golden/frontend_golden.npz, highest: max |diff| {err:.3e} (tol 2e-4)")
-    if err > 2e-4:
-        raise RuntimeError(f"kernel disagrees with the front-end golden: {err}")
+    for variant in VARIANTS:
+        out = ff.fused_log_mel_patches(torch.from_numpy(golden["wav"]).cuda(), cfg, "highest",
+                                       _variant=variant)
+        torch.cuda.synchronize()
+        err = float(np.abs(out.cpu().numpy() - golden["patches"]).max())
+        errs[variant]["golden highest"] = err
+        print(f"kernel vs tests/golden/frontend_golden.npz, {variant}, highest: max |diff| "
+              f"{err:.3e} (tol 2e-4)")
+        if err > 2e-4:
+            raise RuntimeError(f"kernel {variant} disagrees with the front-end golden: {err}")
 
     probe_errs = {"scale2": {}, "row_merge": {}}
     for shape, rows, offset, variant in PROBE_CASES:
@@ -373,14 +393,18 @@ def main() -> int:
                                  transfer_dtype="int16")
     srv.warmup()
     ff.LAUNCHES = 0
+    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     d0 = srv.dispatches
     scores = _drive(srv, streams, schedule)
     torch.cuda.synchronize()
     serve_launches, dispatches = ff.LAUNCHES, srv.dispatches - d0
+    serve_by_variant = dict(ff.LAUNCHES_BY_VARIANT)
     print(f"serving path: {dispatches} device steps, fused_log_mel_patches launches "
-          f"{serve_launches}")
+          f"{serve_launches} {serve_by_variant}")
     if serve_launches != dispatches or serve_launches < 1:
         raise RuntimeError(f"kernel launches {serve_launches} != device steps {dispatches}")
+    if serve_by_variant != {"mma": serve_launches, "simt": 0}:
+        raise RuntimeError(f"serving launches not all on the mma variant: {serve_by_variant}")
     n_classes = scfg.model.n_classes
     if scores.shape != (9, n_classes) or not np.isfinite(scores).all() \
             or scores.min() < 0 or scores.max() > 1:
@@ -403,14 +427,19 @@ def main() -> int:
     ws = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(ws, ignore_errors=True)
     ff.LAUNCHES = 0
+    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     t0 = time.perf_counter()
     result = loop.fit(tcfg, workspace=ws)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     train_launches, counts = ff.LAUNCHES, dict(result.counts)
+    train_by_variant = dict(ff.LAUNCHES_BY_VARIANT)
     losses = [h["loss"] for h in result.history]
     print(f"training path: {counts['train_steps']} train steps + {counts['eval_batches']} eval "
-          f"batches in {fit_s:.2f} s, fused_log_mel_patches launches {train_launches}")
+          f"batches in {fit_s:.2f} s, fused_log_mel_patches launches {train_launches} "
+          f"{train_by_variant}")
+    if train_by_variant != {"mma": train_launches, "simt": 0}:
+        raise RuntimeError(f"training launches not all on the mma variant: {train_by_variant}")
     print(f"training path: losses {losses}; eval {result.eval_stats}")
     if counts["train_steps"] != tcfg.train.num_steps or result.interrupted:
         raise RuntimeError(f"fit ran {counts} of {tcfg.train.num_steps} steps")
@@ -454,43 +483,62 @@ def main() -> int:
                   first_step_loss_err=loss_err)
 
     # 7. times
-    # the fused front-end at the serving shape, each mode, and its plain version
-    wav = (torch.randn((8, srv.chunk_samples), generator=gen) * 0.1).cuda()
-    kernel_ms = {
-        p: device_median_ms(lambda p=p: ff.fused_log_mel_patches(wav, scfg.frontend, p))
-        for p in TOL}
-    for p, ms in kernel_ms.items():
-        print(f"time: fused_log_mel_patches {p} [8, {srv.chunk_samples}]: {ms:.4f} ms {tag}")
-    plain_ms = device_median_ms(
-        lambda: ff.fused_log_mel_patches_reference(wav, scfg.frontend, MAIN_PRECISION))
-    print(f"time: plain version {MAIN_PRECISION} [8, {srv.chunk_samples}]: {plain_ms:.4f} ms {tag}")
-    b, n = wav.shape
-    sbound = _frontend_bound(ff, trimmed_spectral_bases, scfg.frontend, b, n)
-    bound = sbound["bound_ms"]
-    print(f"bound, serving [8, {n}]: {sbound['dft_flops'] / 1e9:.4f} GFLOP DFT + "
-          f"{sbound['mel_flops'] / 1e9:.4f} GFLOP mel; {sbound['bytes'] / 1e6:.3f} MB at "
-          f"{PEAK_BYTES / 1e12:g} TB/s = {sbound['bytes_ms']:.4f} ms; highest (f32 "
-          f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s) {bound['highest']:.4f} ms, default (DFT bf16 "
-          f"{PEAK_BF16_TC_FLOPS / 1e12:g} TFLOP/s, mel f32) {bound['default']:.4f} ms, bf16x3 "
-          f"(three bf16 passes, mel f32) {bound['bf16x3']:.4f} ms; side number, all on f32 "
-          f"CUDA cores as this kernel computes {sbound['f32_cores_ms']:.4f} ms {tag}")
-    for p in TOL:
-        print(f"roofline share: fused_log_mel_patches {p} [8, {n}]: "
-              f"{bound[p] / kernel_ms[p]:.4f} of bound {tag}")
+    # the fused front-end at the serving and the training shape: both
+    # variants per mode, the mma variant at each frame tile that fits, and
+    # the plain version
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
-    # the fused front-end at the training shape, at the preset's precision
+    def time_frontend(w, fcfg):
+        kp, np_ = ff.padded_sizes(fcfg)
+        _, _, used, _, _, _ = ff._framing_plan(fcfg, w.shape[1])
+        t = {"ms": {v: {} for v in VARIANTS}, "plain_ms": {}, "tile": {}, "tile_ms": {}}
+        for p in TOL:
+            for v in VARIANTS:
+                t["ms"][v][p] = device_median_ms(
+                    lambda p=p, v=v: ff.fused_log_mel_patches(w, fcfg, p, _variant=v))
+            t["plain_ms"][p] = device_median_ms(
+                lambda p=p: ff.fused_log_mel_patches_reference(w, fcfg, p))
+            t["tile"][p] = ff.tile_frames(w.shape[0], used, kp, np_, p, sm_count)
+            t["tile_ms"][p] = {
+                bm: device_median_ms(lambda p=p, bm=bm: ff.fused_log_mel_patches(w, fcfg, p, _bm=bm))
+                for bm in ff.TILE_FRAMES if ff.mma_smem_bytes(bm, kp, np_, p) <= ff.SMEM_BYTES}
+        return t
+
+    def report_frontend(site, w, t, fb):
+        shape = list(w.shape)
+        print(f"bound, {site} {shape}: {fb['dft_flops'] / 1e9:.4f} GFLOP DFT + "
+              f"{fb['mel_flops'] / 1e9:.4f} GFLOP mel; {fb['bytes'] / 1e6:.3f} MB at "
+              f"{PEAK_BYTES / 1e12:g} TB/s = {fb['bytes_ms']:.4f} ms; highest (3xTF32 on "
+              f"the tensor cores, three passes at {PEAK_TF32_TC_FLOPS / 1e12:g} TFLOP/s, mel "
+              f"f32) {fb['bound_ms']['highest']:.4f} ms, default (DFT bf16 "
+              f"{PEAK_BF16_TC_FLOPS / 1e12:g} TFLOP/s, mel f32) {fb['bound_ms']['default']:.4f} "
+              f"ms, bf16x3 (three bf16 passes, mel f32) {fb['bound_ms']['bf16x3']:.4f} ms; "
+              f"all on the f32 CUDA cores at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s "
+              f"{fb['f32_cores_ms']:.4f} ms (the shares below use the per-mode bounds) {tag}")
+        for p in TOL:
+            mma, simt, bnd = t["ms"]["mma"][p], t["ms"]["simt"][p], fb["bound_ms"][p]
+            tiles = ", ".join(f"BM {bm} {ms:.4f}" for bm, ms in t["tile_ms"][p].items())
+            print(f"time: fused_log_mel_patches {p} {site} {shape}: mma {mma:.4f} ms (BM "
+                  f"{t['tile'][p]}), simt {simt:.4f} ms, plain version {t['plain_ms'][p]:.4f} "
+                  f"ms, bound {bnd:.4f} ms ({fb['bound_by'][p]}); share of bound mma "
+                  f"{bnd / mma:.4f}, simt {bnd / simt:.4f}; mma per tile: {tiles} {tag}")
+            if mma >= simt:
+                print(f"time: NOTE mma is not faster than simt: {p} {site} {shape}")
+
+    wav = (torch.randn((8, srv.chunk_samples), generator=gen) * 0.1).cuda()
+    b, n = wav.shape
+    st = time_frontend(wav, scfg.frontend)
+    sbound = _frontend_bound(ff, trimmed_spectral_bases, scfg.frontend, b, n)
+    report_frontend("serving", wav, st, sbound)
+    bound = sbound["bound_ms"]
+    kernel_ms, plain_ms = st["ms"]["mma"], st["plain_ms"][MAIN_PRECISION]
+
     tprec = tcfg.frontend.precision
     w64 = (torch.randn((bs, x1.shape[1]), generator=gen) * 0.1).cuda()
-    train_kernel_ms = device_median_ms(
-        lambda: ff.fused_log_mel_patches(w64, tcfg.frontend, tprec))
-    train_plain_ms = device_median_ms(
-        lambda: ff.fused_log_mel_patches_reference(w64, tcfg.frontend, tprec))
+    tt = time_frontend(w64, tcfg.frontend)
     tbound = _frontend_bound(ff, trimmed_spectral_bases, tcfg.frontend, *w64.shape)
-    print(f"time: fused_log_mel_patches {tprec} {list(w64.shape)}: {train_kernel_ms:.4f} ms, "
-          f"plain version {train_plain_ms:.4f} ms, bound {tbound['bound_ms'][tprec]:.4f} ms "
-          f"({tbound['bound_by'][tprec]}: {tbound['dft_flops'] / 1e9:.4f} GFLOP DFT + "
-          f"{tbound['mel_flops'] / 1e9:.4f} GFLOP mel, {tbound['bytes'] / 1e6:.3f} MB), "
-          f"{tbound['bound_ms'][tprec] / train_kernel_ms:.4f} of bound {tag}")
+    report_frontend("training", w64, tt, tbound)
+    train_kernel_ms, train_plain_ms = tt["ms"]["mma"][tprec], tt["plain_ms"][tprec]
 
     # the probe kernels, at each timed case, beside the library call; each
     # call reads the next of enough copies of its input to fill the L2 twice,
@@ -561,28 +609,37 @@ def main() -> int:
                                 _profile(lambda: step(state, x1, y1), n_steps_prof), tag)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"memory: peak allocated {peak_gb:.2f} GB over the whole run {tag}")
-    record.update(kernel_ms=kernel_ms, plain_ms=plain_ms, tick_ms=tick_med, bound_ms=bound,
+    record.update(kernel_ms=kernel_ms, plain_ms=plain_ms, frontend_serving=st,
+                  frontend_training=tt, tick_ms=tick_med, bound_ms=bound,
                   bound_ms_f32_cores=sbound["f32_cores_ms"], bytes=sbound["bytes"],
                   dft_flops=sbound["dft_flops"], mel_flops=sbound["mel_flops"],
                   max_abs_err=errs, tick_profile=tick_prof, train_step_ms=step_med,
                   train_clips_per_s=clips_s, train_step_profile=step_prof,
                   train_frontend={"ms": train_kernel_ms, "plain_ms": train_plain_ms,
                                   "precision": tprec, "shape": list(w64.shape), **tbound},
+                  frontend_launches={"serve": serve_by_variant, "train": train_by_variant},
                   peak_memory_gb=peak_gb)
 
     main_probe = _probe_key(*PROBE_CASES[0][:3])
     kernels = [{
         "name": "fused_log_mel_patches",
+        "variant": "mma",
         "route": "cuda",
         "source": "mla_tpu_torch/csrc/fused_frontend.cu",
         "replaces": "mla_tpu/ops/pallas_frontend.py:154",
         "launches": serve_launches + train_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_launches},
-        "max_abs_err": errs[f"serve [8, 77120] {MAIN_PRECISION}"],
-        "max_abs_err_by_case": errs,
+        "launches_by_variant": {v: serve_by_variant[v] + train_by_variant[v] for v in VARIANTS},
+        "max_abs_err": errs["mma"][f"serve [8, 77120] {MAIN_PRECISION}"],
+        "max_abs_err_by_case": errs["mma"],
+        "simt_max_abs_err_by_case": errs["simt"],
         "ms": kernel_ms[MAIN_PRECISION],
         "kernel_ms": kernel_ms,
+        "simt_ms": st["ms"]["simt"],
+        "tile": st["tile"],
+        "kernel_ms_by_tile": st["tile_ms"],
         "plain_ms": plain_ms,
+        "plain_ms_by_precision": st["plain_ms"],
         "bound_ms": bound[MAIN_PRECISION],
         "bound_ms_by_precision": bound,
         "bound_ms_f32_cores": sbound["f32_cores_ms"],
@@ -594,8 +651,13 @@ def main() -> int:
         "shape": [b, n],
         "train": {"shape": list(w64.shape), "precision": tprec, "ms": train_kernel_ms,
                   "plain_ms": train_plain_ms, "bound_ms": tbound["bound_ms"][tprec],
+                  "bound_ms_f32_cores": tbound["f32_cores_ms"],
                   "bound_by": tbound["bound_by"][tprec],
-                  "max_abs_err": errs[f"train [64, 64000] {tprec}"]},
+                  "max_abs_err": errs["mma"][f"train [64, 64000] {tprec}"],
+                  "kernel_ms": tt["ms"]["mma"], "simt_ms": tt["ms"]["simt"],
+                  "plain_ms_by_precision": tt["plain_ms"], "tile": tt["tile"],
+                  "kernel_ms_by_tile": tt["tile_ms"],
+                  "bound_ms_by_precision": tbound["bound_ms"]},
         "tick_ms": tick_med,
         "train_step_ms": step_med,
     }]

@@ -8,42 +8,96 @@
 // bins as two products (re, im), sqrt(re^2 + im^2), the bins x mel product
 // in f32, log(x + log_offset).
 //
-// What bounds it on this card. At the serving shape [8, 77120] (8 streams,
-// 5 patches of 96 frames = 480 frames each, window 400, 241 mel-active bins,
-// 64 mel bins) the DFT is 2 * 2 * 3840 * 400 * 241 = 1.48 GFLOP and the mel
-// product 2 * 3840 * 241 * 64 = 0.118 GFLOP, done as f32 FMAs on the CUDA
-// cores, against ~3.5 MB of traffic (waveform in once, log-mel out once;
-// the bases add 0.83 MB and stay in L2). That is operations, not bytes, at
-// the peak of each mode's operand type: f32 for "highest", bf16 tensor-core
-// products for the DFT of "default" (one pass) and "bf16x3" (three), the
-// mel product at f32 in every mode. This kernel does all of it as f32 FMAs
-// on the CUDA cores, so in the bf16 modes it sits well above its bound.
+// Two variants, one C entry point each:
+//   fused_log_mel_mma   the main path's kernel: the DFT on the tensor cores
+//                       with mma.sync (below);
+//   fused_log_mel_simt  the first design: every product as f32 FMAs on the
+//                       CUDA cores, one thread per bin for 16 frames. Kept
+//                       so that both can be timed in one run.
 //
-// What the design does about it:
-//   - Framing comes straight from the waveform: a block owns one clip and
-//     kTileFrames consecutive frames and stages those frames in shared
-//     memory, rounded once to the precision mode's operands. The TPU kernel
-//     built g = ceil(window / hop) residue-class copies of the waveform in
-//     device memory because Mosaic has no in-kernel row-merge reshape; a
-//     CUDA block indexes the waveform by stride, so that traffic is gone.
-//   - Each thread owns one DFT bin for all kTileFrames frames, so one pair
-//     of basis loads (coalesced across the warp, L1/L2 resident) feeds
-//     2 * kTileFrames FMAs, and the frame operand is a float4 shared-memory
-//     load that every lane of the warp reads at the same address
-//     (a broadcast, no bank conflict).
-//   - The magnitude tile stays in shared memory for the mel product; only
-//     the [kTileFrames, n_mel] log-mel rows are written out.
-// No tensor cores yet: "highest" must not round to TF32, and the other modes
-// are defined by their operand rounding, which the FMA path reproduces
-// exactly. A wgmma version is later work.
+// What bounds the work. At the serving shape [8, 77120] (3840 frames, window
+// 400, 240 mel-active bins, 64 mel bins) the DFT is 2 * 2 * 3840 * 400 * 240
+// = 1.47 GFLOP and the mel product 0.118 GFLOP against ~3.5 MB of waveform in
+// and log-mel out; at the training shape [64, 64000] (24576 frames) 9.44 and
+// 0.755 GFLOP against ~23 MB. Operations, then, at the peak of each mode's
+// route: one bf16 pass ("default") or three ("bf16x3") at the bf16 tensor-core
+// rate, three TF32 passes ("highest") at the TF32 rate, the mel product at
+// the f32 CUDA-core rate in every mode. Past the operations, what a block
+// pays most for is the bases: every block reads all of them from L2 (per
+// block 2 * 400 * 240 * 2 B = 0.38 MB in "default", 0.77 MB in "bf16x3",
+// 1.54 MB in "highest"), so a larger frame tile where the grid is large
+// cuts L2 traffic per frame.
 //
-// Precision modes (one templated operand-rounding step):
-//   kF32     "highest" / "high": f32 operands, f32 FMA.
-//   kBf16    "default": both operands rounded to bf16 (nearest even),
-//            products summed in f32 (one bf16 pass).
-//   kBf16x3  "bf16x3": hi*hi + hi*lo + lo*hi with hi = bf16(a),
-//            lo = bf16(a - hi) (mla_tpu/ops/frontend.py split_bf16).
-// The mel product is f32 in every mode.
+// The tensor-core design (mma.sync, the warp-level tensor-core instruction;
+// wgmma, TMA staging of the waveform and cluster multicast of the bases are
+// later work):
+//   - The DFT is a GEMM: M = BM frames of one clip (the block's tile),
+//     N = bins zero-padded to np (a multiple of 16), K = taps zero-padded to
+//     kp (a multiple of 16). A block is 8 warps; warp w takes the groups of
+//     kNT = 2 n-tiles (8 bins each) w, w + 8, ... and all BM / 16 m-tiles,
+//     so a B fragment fetched from L2 feeds BM / 16 products and an A
+//     fragment from shared memory feeds 2 * kNT (cos and sin share it).
+//     The cos and sin accumulators line up element for element, so
+//     sqrt(re^2 + im^2) is taken in registers and stored straight into the
+//     shared magnitude tile; re and im never leave the registers.
+//   - Precision modes:
+//       "default"  one m16n8k16 bf16 pass, both operands rounded to bf16
+//                  (nearest even), f32 accumulation;
+//       "bf16x3"   the same instruction three times, lo*hi + hi*lo + hi*hi
+//                  with hi = bf16(a), lo = bf16(a - hi) (mla_tpu/ops/frontend.py
+//                  split_bf16);
+//       "highest"  3xTF32 on m16n8k8 TF32: big = tf32(a), small =
+//                  tf32(a - big), each by cvt.rna.tf32.f32 (round to nearest,
+//                  ties away; the unit would truncate an unconverted f32),
+//                  small*big + big*small + big*big. About 21 mantissa bits,
+//                  where a bf16 hi/lo split keeps about 16 (the TPU kernel's
+//                  six-pass "highest" is f32-accurate; three bf16 passes are
+//                  its "bf16x3").
+//   - Bases: the wrapper pre-rounds and pre-splits them once per (config,
+//     device, mode) and lays them out in fragment order, so a lane's B
+//     fragments for one k-step and one n-tile are one 16-byte copy ("default":
+//     cos and sin; otherwise two: cos hi/lo or big/small, then sin). Each
+//     lane copies its own fragments with cp.async into a ring in shared
+//     memory, 5 ("default") or 2 k-steps ahead of the products, so the L2
+//     latency hides behind them without holding registers.
+//   - Frames: the block stages its BM frames from the waveform by stride
+//     into a padded f32 tile (row stride kp + 8 for the bf16 modes, kp + 4
+//     for TF32: conflict-free fragment loads), so every geometry, whatever
+//     hop * 4 bytes is aligned to, takes one code path. The A operand is
+//     rounded or split at fragment load, not at staging: one f32 tile serves
+//     every mode at the smallest shared-memory cost, and each A fragment's
+//     split is paid once for 2 * kNT (x3) products.
+//   - Mel product and log: f32 FMAs on the CUDA cores, summed over bins in
+//     order as the first design does. A thread owns one mel bin (so at most
+//     64 mel bins) for BM / 4 frames, so one filterbank load feeds BM / 4
+//     FMAs and the magnitudes are 16-byte shared loads that a warp
+//     broadcasts. The filterbank is first copied into the shared memory the
+//     frames and rings no longer need: with the tile's shared memory the L1
+//     cannot hold it, and reading it from L2 stalled every bin.
+//   - Frames are staged 16 frames per pass, so each thread keeps 16 loads
+//     in flight.
+//   - Shared memory per block: frames BM * (kp + 8 or + 4) * 4 B plus
+//     magnitudes BM * (np + 8) * 4 B, kept apart because a warp stores its
+//     magnitudes while others still read frames, plus 48 KB of B rings. At
+//     16 kHz (kp 400, np 240): BM 64 -> 212 KB (bf16) / 211 KB (TF32),
+//     BM 32 -> 130 KB, BM 16 -> 89 KB. At 22.05 kHz (kp 560, np 352): BM 32
+//     -> 164 KB; BM 64 does not fit in 227 KB. The wrapper picks BM
+//     (ops/fused_frontend.py::tile_frames).
+//   - Registers per thread (ptxas -v, sm_90a, CUDA 12.8; the report is kept
+//     beside the library as <library>.log and chip_smoke.py prints it), at
+//     BM 64 / 32 / 16: "default" 104 / 80 / 64, "bf16x3" 127 / 80 / 64,
+//     "highest" 123 / 87 / 64. No spills, but for 4 bytes in "default" at
+//     BM 32 and 16. The SIMT variant: 64 ("highest", "default"), 86
+//     ("bf16x3").
+//   - Where the time goes (ops/fused_frontend_phases.py on an H100): at
+//     [64, 64000] "highest", BM 64, the DFT takes ~3/4 of the kernel, at
+//     about a third of the TF32 rate; a block of 8 warps fills an SM's
+//     shared memory, so 2 warps per scheduler issue the products, the
+//     operand splits and the shared loads (which of these stalls, the
+//     probe cannot say). The mel product takes most of the rest: a shared
+//     load for every 3 FMAs.
+//     wgmma, warp specialisation and smaller tiles per block are the next
+//     steps (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,8 +105,9 @@
 
 namespace {
 
-constexpr int kTileFrames = 16;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 enum Mode { kF32 = 0, kBf16 = 1, kBf16x3 = 2 };
 
@@ -60,13 +115,369 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+template <typename Kernel>
+cudaError_t set_smem(Kernel* kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core variant.
+// ---------------------------------------------------------------------------
+
+constexpr int kNT = 2;  // n-tiles of 8 bins per warp group
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 -> one register of two bf16 (nearest even); `lo` in the low half,
+// which an mma fragment holds at the lower k index.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// f32 -> TF32 by cvt.rna (nearest, ties away from zero), as an f32 bit
+// pattern whose low 13 bits are zero (the mask makes that explicit).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// One k-step's B fragments of one n-tile: "default" uses w[0] (cos b0 b1,
+// sin b0 b1); the others w[0] (cos hi/big b0 b1, lo/small b0 b1) and w[1]
+// (the same for sin).
+template <int MODE>
+struct BFrag {
+  uint4 w[MODE == kBf16 ? 1 : 2];
+};
+
+// The B ring: each lane copies its own fragments into shared memory with
+// cp.async, kStages - 1 k-steps ahead of the products, and reads back only
+// what it copied, so a wait_group orders it and no barrier is needed.
+template <int MODE>
+__host__ __device__ constexpr int ring_stages() {
+  return MODE == kBf16 ? 6 : 3;  // 48 KB a block either way
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A block's phases, as a mask: the port launches all of them; the phase
+// probe (ops/fused_frontend_phases.py) times each alone and in order.
+enum Phase { kStage = 1, kDft = 2, kMel = 4, kAllPhases = 7 };
+
+// grid (ceil(used_frames / BM), batch); block kThreads.
+// wav [batch, n_samples]; basis: the packed B operand, [kp / KS, np / 8, 32
+// lanes, V uint4] (ops/fused_frontend.py::pack_dft_bases); mel_w [np, n_mel]
+// with rows >= n_bins zero; out [batch, used_frames, n_mel].
+// Shared memory: magnitudes [BM][ms] f32, frames [BM][fs] f32, then each
+// warp's B ring [kStages][kNT][V][32 lanes] uint4; after the DFT the frames
+// and rings hold the mel filterbank, a chunk of bins at a time.
+// Needs 4 * n_mel <= kThreads (n_mel <= 64).
+template <int MODE, int MF, int PHASES = kAllPhases>
+__global__ void __launch_bounds__(kThreads)
+    fused_log_mel_mma_kernel(const float* __restrict__ wav, const uint4* __restrict__ basis,
+                             const float* __restrict__ mel_w, float* __restrict__ out,
+                             int n_samples, int used_frames, int window, int kp, int hop,
+                             int np_, int n_mel, float log_offset) {
+  constexpr int BM = 16 * MF;
+  constexpr int KS = MODE == kF32 ? 8 : 16;  // k per mma
+  constexpr int V = MODE == kBf16 ? 1 : 2;   // uint4 per lane per (k-step, n-tile)
+  constexpr int R = BM / 4;                  // frames per thread in the mel product
+  constexpr int S = ring_stages<MODE>();
+  constexpr int U = 16;                      // frames staged per pass: loads in flight
+  extern __shared__ float4 smem4[];
+  const int fs = kp + (MODE == kF32 ? 4 : 8);  // frame row stride, floats
+  const int ms = np_ + 8;                      // magnitude row stride, floats
+  float* mag = reinterpret_cast<float*>(smem4);
+  float* xs = mag + BM * ms;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint4* ring = reinterpret_cast<uint4*>(xs + BM * fs) + warp * (S * kNT * V * 32) + lane;
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * BM;
+  const float* x = wav + static_cast<int64_t>(b) * n_samples;
+
+  // 1. Stage frames t0 .. t0 + BM - 1 as f32, U frames per pass so that U
+  //    loads are in flight per thread; frames past used_frames and taps
+  //    past the window are zero.
+  for (int f0 = 0; f0 < BM && (PHASES & kStage); f0 += U)
+    for (int k = threadIdx.x; k < kp; k += kThreads) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + f0 + u;
+        v[u] = (t < used_frames && k < window) ? __ldg(x + static_cast<int64_t>(t) * hop + k)
+                                               : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) xs[(f0 + u) * fs + k] = v[u];
+    }
+  __syncthreads();
+
+  // 2. DFT on the tensor cores, then the magnitude into shared memory.
+  const int g = lane >> 2, tq = lane & 3;
+  const int n8 = np_ / 8, steps = kp / KS;
+  const int64_t step_stride = static_cast<int64_t>(n8) * 32 * V;  // uint4 per k-step
+  for (int grp = warp; grp < n8 / kNT && (PHASES & kDft); grp += kWarps) {
+    float re[MF][kNT][4], im[MF][kNT][4];
+#pragma unroll
+    for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) re[mf][nt][e] = im[mf][nt][e] = 0.f;
+
+    const uint4* bp = basis + (static_cast<int64_t>(grp) * kNT * 32 + lane) * V;
+    // k-step s's fragments go to ring slot s % S: [nt][v] at stride 32 uint4
+    auto issue = [&](int s) {
+      uint4* dst = ring + (s % S) * (kNT * V * 32);
+      const uint4* src = bp + s * step_stride;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int v = 0; v < V; ++v) cp_async16(dst + (nt * V + v) * 32, src + nt * 32 * V + v);
+    };
+#pragma unroll
+    for (int p = 0; p < S - 1; ++p) {
+      if (p < steps) issue(p);
+      cp_async_commit();
+    }
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<S - 2>();  // k-step s has landed
+      BFrag<MODE> bc[kNT];
+      const uint4* slot = ring + (s % S) * (kNT * V * 32);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int v = 0; v < V; ++v) bc[nt].w[v] = slot[(nt * V + v) * 32];
+      if (s + S - 1 < steps) issue(s + S - 1);  // into the slot read at step s - 1
+      cp_async_commit();
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf) {
+        const float* r0 = xs + (mf * 16 + g) * fs;
+        const float* r1 = r0 + 8 * fs;
+        if (MODE == kF32) {
+          const int c0 = s * KS + tq;
+          const float v[4] = {r0[c0], r1[c0], r0[c0 + 4], r1[c0 + 4]};
+          uint32_t big[4], small[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            big[e] = tf32_rna(v[e]);
+            small[e] = tf32_rna(v[e] - __uint_as_float(big[e]));
+          }
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+            const uint4 c = bc[nt].w[0], sn = bc[nt].w[1];
+            mma_tf32(re[mf][nt], small, c.x, c.y);
+            mma_tf32(re[mf][nt], big, c.z, c.w);
+            mma_tf32(re[mf][nt], big, c.x, c.y);
+            mma_tf32(im[mf][nt], small, sn.x, sn.y);
+            mma_tf32(im[mf][nt], big, sn.z, sn.w);
+            mma_tf32(im[mf][nt], big, sn.x, sn.y);
+          }
+        } else {
+          const int c0 = s * KS + 2 * tq;
+          const float2 v[4] = {*reinterpret_cast<const float2*>(r0 + c0),
+                               *reinterpret_cast<const float2*>(r1 + c0),
+                               *reinterpret_cast<const float2*>(r0 + c0 + 8),
+                               *reinterpret_cast<const float2*>(r1 + c0 + 8)};
+          uint32_t hi[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hi[e] = pack_bf16(v[e].x, v[e].y);
+          if (MODE == kBf16) {
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt) {
+              const uint4 w = bc[nt].w[0];
+              mma_bf16(re[mf][nt], hi, w.x, w.y);
+              mma_bf16(im[mf][nt], hi, w.z, w.w);
+            }
+          } else {
+            uint32_t lo[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 h = unpack_bf16(hi[e]);
+              lo[e] = pack_bf16(v[e].x - h.x, v[e].y - h.y);
+            }
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt) {
+              const uint4 c = bc[nt].w[0], sn = bc[nt].w[1];
+              mma_bf16(re[mf][nt], lo, c.x, c.y);
+              mma_bf16(re[mf][nt], hi, c.z, c.w);
+              mma_bf16(re[mf][nt], hi, c.x, c.y);
+              mma_bf16(im[mf][nt], lo, sn.x, sn.y);
+              mma_bf16(im[mf][nt], hi, sn.z, sn.w);
+              mma_bf16(im[mf][nt], hi, sn.x, sn.y);
+            }
+          }
+        }
+      }
+    }
+    // C fragment: (row g, cols 2tq, 2tq + 1) and (row g + 8, the same cols)
+#pragma unroll
+    for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const float* a = re[mf][nt];
+        const float* c = im[mf][nt];
+        float* dst = mag + (mf * 16 + g) * ms + (grp * kNT + nt) * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(sqrtf(a[0] * a[0] + c[0] * c[0]), sqrtf(a[1] * a[1] + c[1] * c[1]));
+        *reinterpret_cast<float2*>(dst + 8 * ms) =
+            make_float2(sqrtf(a[2] * a[2] + c[2] * c[2]), sqrtf(a[3] * a[3] + c[3] * c[3]));
+      }
+  }
+  __syncthreads();
+
+  // 3. Mel product in f32 on the CUDA cores and the log: a thread owns mel
+  //    bin m for R consecutive frames; the padded bins have zero magnitude
+  //    and zero weight. The filterbank is copied into the space the frames
+  //    and the rings held, jc bins at a time (all of it at 16 kHz), so its
+  //    reads are shared loads, not L2 round trips.
+  float* wsm = xs;
+  const int jc = min(np_, (BM * fs + kWarps * S * kNT * V * 32 * 4) / n_mel / 4 * 4);
+  const bool active = threadIdx.x < 4 * n_mel;
+  const int m = threadIdx.x % n_mel;
+  const int f0 = (threadIdx.x / n_mel) * R;
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int j0 = 0; j0 < np_ && (PHASES & kMel); j0 += jc) {
+    const int rows = min(jc, np_ - j0);
+    if (j0 > 0) __syncthreads();  // the last chunk's reads are done
+    {
+      // rows is a multiple of 4, so the chunk is whole float4s
+      const float4* src = reinterpret_cast<const float4*>(mel_w + j0 * n_mel);
+      float4* dst = reinterpret_cast<float4*>(wsm);
+      const int n4 = rows * n_mel / 4;
+      for (int q = threadIdx.x; q < n4; q += 4 * kThreads) {
+        float4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (q + u * kThreads < n4) v[u] = __ldg(src + q + u * kThreads);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (q + u * kThreads < n4) dst[q + u * kThreads] = v[u];
+      }
+    }
+    __syncthreads();
+    if (active) {
+      for (int j = 0; j < rows; j += 4) {
+        const float w0 = wsm[(j + 0) * n_mel + m];
+        const float w1 = wsm[(j + 1) * n_mel + m];
+        const float w2 = wsm[(j + 2) * n_mel + m];
+        const float w3 = wsm[(j + 3) * n_mel + m];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 v = *reinterpret_cast<const float4*>(mag + (f0 + r) * ms + j0 + j);
+          acc[r] = fmaf(v.x, w0, acc[r]);
+          acc[r] = fmaf(v.y, w1, acc[r]);
+          acc[r] = fmaf(v.z, w2, acc[r]);
+          acc[r] = fmaf(v.w, w3, acc[r]);
+        }
+      }
+    }
+  }
+  if (active && (PHASES & kMel)) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = t0 + f0 + r;
+      if (t < used_frames)
+        out[(static_cast<int64_t>(b) * used_frames + t) * n_mel + m] =
+            logf(acc[r] + log_offset);
+    }
+  }
+}
+
+template <int MODE, int MF, int PHASES = kAllPhases>
+cudaError_t launch_mma(const float* wav, const void* basis, const float* mel_w, float* out,
+                       int batch, int n_samples, int used_frames, int window, int kp, int hop,
+                       int np_, int n_mel, float log_offset, cudaStream_t stream) {
+  constexpr int BM = 16 * MF;
+  constexpr int V = MODE == kBf16 ? 1 : 2;
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(BM) * (kp + (MODE == kF32 ? 4 : 8) + np_ + 8) +
+      sizeof(uint4) * kWarps * ring_stages<MODE>() * kNT * V * 32;
+  cudaError_t err = set_smem(fused_log_mel_mma_kernel<MODE, MF, PHASES>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((used_frames + BM - 1) / BM, batch);
+  fused_log_mel_mma_kernel<MODE, MF, PHASES><<<grid, kThreads, smem, stream>>>(
+      wav, static_cast<const uint4*>(basis), mel_w, out, n_samples, used_frames, window, kp,
+      hop, np_, n_mel, log_offset);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_mma_bm(int bm, const float* wav, const void* basis, const float* mel_w,
+                          float* out, int batch, int n_samples, int used_frames, int window,
+                          int kp, int hop, int np_, int n_mel, float log_offset,
+                          cudaStream_t s) {
+  switch (bm) {
+    case 16:
+      return launch_mma<MODE, 1>(wav, basis, mel_w, out, batch, n_samples, used_frames,
+                                 window, kp, hop, np_, n_mel, log_offset, s);
+    case 32:
+      return launch_mma<MODE, 2>(wav, basis, mel_w, out, batch, n_samples, used_frames,
+                                 window, kp, hop, np_, n_mel, log_offset, s);
+    case 64:
+      return launch_mma<MODE, 4>(wav, basis, mel_w, out, batch, n_samples, used_frames,
+                                 window, kp, hop, np_, n_mel, log_offset, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The SIMT variant (the first design): f32 FMAs on the CUDA cores. Each
+// thread owns one DFT bin for a tile's kSimtFrames frames, so one pair of
+// basis loads feeds 2 * kSimtFrames FMAs; the frame operand is a float4
+// shared load that the warp broadcasts. The operands are rounded (and, for
+// bf16x3, split) at staging, so the products reproduce each mode exactly.
+// ---------------------------------------------------------------------------
+
+constexpr int kSimtFrames = 16;
+
 // Accumulate one basis column against the tile's frames over 4 taps.
 template <int MODE>
 __device__ __forceinline__ void accumulate(const float* __restrict__ xa,
                                            const float* __restrict__ xb,
                                            int kp, int k, const float c[4],
-                                           const float s[4], float re[kTileFrames],
-                                           float im[kTileFrames]) {
+                                           const float s[4], float re[kSimtFrames],
+                                           float im[kSimtFrames]) {
   if (MODE == kBf16x3) {
     float ch[4], cl[4], sh[4], sl[4];
 #pragma unroll
@@ -77,7 +488,7 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ xa,
       sl[u] = bf16_round(s[u] - sh[u]);
     }
 #pragma unroll
-    for (int f = 0; f < kTileFrames; ++f) {
+    for (int f = 0; f < kSimtFrames; ++f) {
       const float4 h4 = *reinterpret_cast<const float4*>(xa + f * kp + k);
       const float4 l4 = *reinterpret_cast<const float4*>(xb + f * kp + k);
       const float h[4] = {h4.x, h4.y, h4.z, h4.w};
@@ -100,7 +511,7 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ xa,
       sr[u] = MODE == kBf16 ? bf16_round(s[u]) : s[u];
     }
 #pragma unroll
-    for (int f = 0; f < kTileFrames; ++f) {
+    for (int f = 0; f < kSimtFrames; ++f) {
       const float4 x4 = *reinterpret_cast<const float4*>(xa + f * kp + k);
       const float x[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
@@ -112,31 +523,28 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ xa,
   }
 }
 
-// grid (ceil(used_frames / kTileFrames), batch); block kThreads.
+// grid (ceil(used_frames / kSimtFrames), batch); block kThreads.
 // wav [batch, n_samples]; cos_b, sin_b [kp, n_bins] with rows >= window zero;
 // mel_w [n_bins, n_mel]; out [batch, used_frames, n_mel].
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-    fused_log_mel_kernel(const float* __restrict__ wav,
-                         const float* __restrict__ cos_b,
-                         const float* __restrict__ sin_b,
-                         const float* __restrict__ mel_w,
-                         float* __restrict__ out, int n_samples,
-                         int used_frames, int window, int kp, int hop,
-                         int n_bins, int n_mel, float log_offset) {
+    fused_log_mel_simt_kernel(const float* __restrict__ wav,
+                              const float* __restrict__ cos_b,
+                              const float* __restrict__ sin_b,
+                              const float* __restrict__ mel_w,
+                              float* __restrict__ out, int n_samples,
+                              int used_frames, int window, int kp, int hop,
+                              int n_bins, int n_mel, float log_offset) {
   extern __shared__ float4 smem4[];
   float* xa = reinterpret_cast<float*>(smem4);  // frames (hi part for bf16x3)
-  float* xb = xa + kTileFrames * kp;            // lo part, bf16x3 only
-  float* mag = xa + (MODE == kBf16x3 ? 2 : 1) * kTileFrames * kp;
+  float* xb = xa + kSimtFrames * kp;            // lo part, bf16x3 only
+  float* mag = xa + (MODE == kBf16x3 ? 2 : 1) * kSimtFrames * kp;
 
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTileFrames;
+  const int t0 = blockIdx.x * kSimtFrames;
   const float* x = wav + static_cast<int64_t>(b) * n_samples;
 
-  // 1. Stage frames t0 .. t0 + kTileFrames - 1 from the waveform, rounded
-  //    to the mode's operand. Frames past used_frames and taps past the
-  //    window are zero.
-  for (int i = threadIdx.x; i < kTileFrames * kp; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kSimtFrames * kp; i += blockDim.x) {
     const int f = i / kp;
     const int k = i - f * kp;
     const int t = t0 + f;
@@ -154,11 +562,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // 2. DFT: one bin per thread, all frames of the tile, then the magnitude.
   for (int j = threadIdx.x; j < n_bins; j += blockDim.x) {
-    float re[kTileFrames], im[kTileFrames];
+    float re[kSimtFrames], im[kSimtFrames];
 #pragma unroll
-    for (int f = 0; f < kTileFrames; ++f) re[f] = im[f] = 0.f;
+    for (int f = 0; f < kSimtFrames; ++f) re[f] = im[f] = 0.f;
     for (int k = 0; k < kp; k += 4) {
       float c[4], s[4];
 #pragma unroll
@@ -169,14 +576,12 @@ __global__ void __launch_bounds__(kThreads)
       accumulate<MODE>(xa, xb, kp, k, c, s, re, im);
     }
 #pragma unroll
-    for (int f = 0; f < kTileFrames; ++f)
+    for (int f = 0; f < kSimtFrames; ++f)
       mag[f * n_bins + j] = sqrtf(re[f] * re[f] + im[f] * im[f]);
   }
   __syncthreads();
 
-  // 3. Mel product in f32 and the log; a warp shares one frame, so the
-  //    magnitude read is a broadcast and the filterbank read is coalesced.
-  for (int i = threadIdx.x; i < kTileFrames * n_mel; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kSimtFrames * n_mel; i += blockDim.x) {
     const int f = i / n_mel;
     const int m = i - f * n_mel;
     const int t = t0 + f;
@@ -189,20 +594,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int MODE>
-cudaError_t launch(const float* wav, const float* cos_b, const float* sin_b,
-                   const float* mel_w, float* out, int batch, int n_samples,
-                   int used_frames, int window, int kp, int hop, int n_bins,
-                   int n_mel, float log_offset, cudaStream_t stream) {
+cudaError_t launch_simt(const float* wav, const float* cos_b, const float* sin_b,
+                        const float* mel_w, float* out, int batch, int n_samples,
+                        int used_frames, int window, int kp, int hop, int n_bins,
+                        int n_mel, float log_offset, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((MODE == kBf16x3 ? 2 : 1) * kTileFrames * kp + kTileFrames * n_bins);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(fused_log_mel_kernel<MODE>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((used_frames + kTileFrames - 1) / kTileFrames, batch);
-  fused_log_mel_kernel<MODE><<<grid, kThreads, smem, stream>>>(
+      sizeof(float) * ((MODE == kBf16x3 ? 2 : 1) * kSimtFrames * kp + kSimtFrames * n_bins);
+  cudaError_t err = set_smem(fused_log_mel_simt_kernel<MODE>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((used_frames + kSimtFrames - 1) / kSimtFrames, batch);
+  fused_log_mel_simt_kernel<MODE><<<grid, kThreads, smem, stream>>>(
       wav, cos_b, sin_b, mel_w, out, n_samples, used_frames, window, kp, hop,
       n_bins, n_mel, log_offset);
   return cudaGetLastError();
@@ -210,28 +611,57 @@ cudaError_t launch(const float* wav, const float* cos_b, const float* sin_b,
 
 }  // namespace
 
-// C entry point, bound with ctypes. Returns a cudaError_t (0 = launched).
-// kp is the window rounded up to a multiple of 4 (the bases' row count);
-// mode is 0 = f32, 1 = bf16, 2 = bf16x3.
-extern "C" int mla_fused_log_mel(const float* wav, const float* cos_b,
-                                 const float* sin_b, const float* mel_w,
-                                 float* out, int batch, int n_samples,
-                                 int used_frames, int window, int kp, int hop,
-                                 int n_bins, int n_mel, float log_offset,
-                                 int mode, void* stream) {
+// C entry points, bound with ctypes. Each returns a cudaError_t (0 =
+// launched). mode is 0 = "highest" (f32 / 3xTF32), 1 = "default" (one bf16
+// pass), 2 = "bf16x3".
+
+// The tensor-core variant. kp (taps) and np (bins) are the packed basis's
+// padded sizes, multiples of 16; bm is the frame tile, 16, 32 or 64.
+extern "C" int mla_fused_log_mel_mma(const float* wav, const void* basis, const float* mel_w,
+                                     float* out, int batch, int n_samples, int used_frames,
+                                     int window, int kp, int hop, int np_, int n_mel,
+                                     float log_offset, int mode, int bm, void* stream) {
+  if (kp % 16 != 0 || np_ % 16 != 0 || kp < window || n_mel < 1 || 4 * n_mel > kThreads ||
+      batch < 1 ||
+      used_frames < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kF32:
+      return launch_mma_bm<kF32>(bm, wav, basis, mel_w, out, batch, n_samples, used_frames,
+                                 window, kp, hop, np_, n_mel, log_offset, s);
+    case kBf16:
+      return launch_mma_bm<kBf16>(bm, wav, basis, mel_w, out, batch, n_samples, used_frames,
+                                  window, kp, hop, np_, n_mel, log_offset, s);
+    case kBf16x3:
+      return launch_mma_bm<kBf16x3>(bm, wav, basis, mel_w, out, batch, n_samples,
+                                    used_frames, window, kp, hop, np_, n_mel, log_offset, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The SIMT variant. kp is the window rounded up to a multiple of 4 (the
+// f32 bases' row count).
+extern "C" int mla_fused_log_mel_simt(const float* wav, const float* cos_b,
+                                      const float* sin_b, const float* mel_w,
+                                      float* out, int batch, int n_samples,
+                                      int used_frames, int window, int kp, int hop,
+                                      int n_bins, int n_mel, float log_offset,
+                                      int mode, void* stream) {
   if (kp % 4 != 0 || kp < window || batch < 1 || used_frames < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kF32:
-      return launch<kF32>(wav, cos_b, sin_b, mel_w, out, batch, n_samples, used_frames,
-                          window, kp, hop, n_bins, n_mel, log_offset, s);
+      return launch_simt<kF32>(wav, cos_b, sin_b, mel_w, out, batch, n_samples, used_frames,
+                               window, kp, hop, n_bins, n_mel, log_offset, s);
     case kBf16:
-      return launch<kBf16>(wav, cos_b, sin_b, mel_w, out, batch, n_samples, used_frames,
-                           window, kp, hop, n_bins, n_mel, log_offset, s);
+      return launch_simt<kBf16>(wav, cos_b, sin_b, mel_w, out, batch, n_samples, used_frames,
+                                window, kp, hop, n_bins, n_mel, log_offset, s);
     case kBf16x3:
-      return launch<kBf16x3>(wav, cos_b, sin_b, mel_w, out, batch, n_samples, used_frames,
-                             window, kp, hop, n_bins, n_mel, log_offset, s);
+      return launch_simt<kBf16x3>(wav, cos_b, sin_b, mel_w, out, batch, n_samples,
+                                  used_frames, window, kp, hop, n_bins, n_mel, log_offset, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,8 +1,10 @@
 """Front-end of the PyTorch port against the JAX package: the numpy
 builders, the torch-ops path, and the fused kernel's plain version against
-the Pallas kernel run in interpret mode. The CUDA kernel itself is held
-against its plain version on the card (chip_smoke.py and the last test
-here, which skips without a card)."""
+the Pallas kernel run in interpret mode. The tensor-core kernel's numerics
+(3xTF32 emulated in torch), its packed operands and its tile rule are held
+here on the CPU. The CUDA kernel itself, both variants, is held against its
+plain version on the card (chip_smoke.py and the last test here, which
+skips without a card)."""
 
 import sys
 
@@ -200,6 +202,149 @@ def test_bytes_moved_counts_the_waveform_once():
     assert ff.frontend_bytes_moved(4, 160000) < jpf.frontend_bytes_moved(4, 160000, JaxFrontendConfig())
 
 
+GEOMETRY_22K = {"sample_rate": 22050}  # window 551, hop 220, 349 mel-active bins
+
+
+def test_3xtf32_emulation_matches_golden_and_f32():
+    """The tensor-core kernel's "highest" arithmetic, emulated: both operands
+    split by ``split_tf32`` (cvt.rna.tf32.f32), small*big + big*small +
+    big*big as f32 matmuls. It must hold the front-end gate against the
+    golden (2e-4) and stay within 1e-5 of the f32 path (a bf16 hi/lo split
+    lands near 9e-5)."""
+    g = np.load("tests/golden/frontend_golden.npz")
+    cfg = FrontendConfig()
+    wav = torch.from_numpy(g["wav"])[None]
+    _, _, used, n_patches, _, _ = ff._framing_plan(cfg, wav.shape[1])
+    frames = fe.frame_signal(wav, cfg.window_length, cfg.hop_length)[:, :used]
+    cos_b, sin_b, mel_t = fe.device_bases(cfg, torch.device("cpu"))
+
+    def dot3(a, b):
+        a_big, a_small = ff.split_tf32(a)
+        b_big, b_small = ff.split_tf32(b)
+        return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+    re, im = dot3(frames, cos_b), dot3(frames, sin_b)
+    emulated = torch.log(torch.sqrt(re * re + im * im) @ mel_t + cfg.log_offset)
+    emulated = emulated.reshape(n_patches, 96, 64).numpy()
+    f32 = ff.fused_log_mel_patches_reference(wav, cfg, "highest")[0].numpy()
+    assert np.abs(emulated - g["patches"]).max() <= 2e-4
+    assert np.abs(emulated - f32).max() <= 1e-5
+    # the split is real: TF32 alone is far coarser than 3xTF32
+    big = ff.round_tf32(frames) @ ff.round_tf32(cos_b)
+    assert (big - frames @ cos_b).abs().max() > 100 * (dot3(frames, cos_b) - frames @ cos_b).abs().max()
+
+
+def test_round_tf32_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2.0 ** -20,
+                      one + 3 * ulp / 2, 3.0e-3])
+    got = ff.round_tf32(x)
+    assert got[:4].tolist() == [one + ulp, -(one + ulp), one, one + 2 * ulp]
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert abs(float(got[4]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+def _unpack(words, kp, np_, precision):
+    """Scatter the packed B operand back to dense [kp, np] planes: cos and
+    sin, each (hi, lo) or (big, small), or (bf16,) for "default"."""
+    k, n = ff.fragment_coords(kp, np_, precision)
+    if precision in ("highest", "high"):
+        vals = words.view(torch.float32)
+    else:
+        vals = words.contiguous().view(torch.bfloat16).float()
+    per = vals.shape[-1] // (2 if precision == "default" else 4)
+    planes = []
+    for i in range(vals.shape[-1] // per):
+        dense = torch.full((kp, np_), float("nan"))
+        dense[k, n] = vals[..., i * per:(i + 1) * per]
+        planes.append(dense)
+    return planes
+
+
+@pytest.mark.parametrize("geometry", ["16k", "22k"])
+@pytest.mark.parametrize("precision", ["default", "bf16x3", "highest"])
+def test_packed_bases_reconstruct_the_bases(geometry, precision):
+    cfg = FrontendConfig(**(GEOMETRY_22K if geometry == "22k" else {}))
+    cos_b, sin_b, mel_t, n_bins = fe.trimmed_spectral_bases(cfg)
+    kp, np_ = ff.padded_sizes(cfg)
+    assert kp % 16 == 0 and np_ % 16 == 0
+    assert (kp, np_) == ((400, 240) if geometry == "16k" else (560, 352))
+    words, mel = ff.pack_dft_bases(cfg, precision)
+    ks = 8 if precision == "highest" else 16
+    assert words.dtype == torch.int32
+    assert words.shape == (kp // ks, np_ // 8, 32, 4 if precision == "default" else 8)
+    planes = _unpack(words, kp, np_, precision)
+    n_planes = 1 if precision == "default" else 2
+    for basis, parts in zip((cos_b, sin_b), (planes[:n_planes], planes[n_planes:])):
+        for p in parts:  # every element written once; the padding is zero
+            assert not torch.isnan(p).any()
+            assert not p[cos_b.shape[0]:].any() and not p[:, n_bins:].any()
+        ref = torch.zeros(kp, np_)
+        ref[:basis.shape[0], :n_bins] = torch.from_numpy(basis)
+        hi = parts[0]
+        if precision == "default":
+            assert torch.equal(hi, fe.round_bf16(ref))
+            continue
+        if precision == "bf16x3":
+            assert torch.equal(hi, fe.round_bf16(ref))
+            assert torch.equal(parts[1], fe.round_bf16(ref - hi))
+            err_bound = 2.0 ** -16  # hi + lo keeps ~16 bits of a basis value <= 1
+        else:
+            assert torch.equal(hi, ff.round_tf32(ref))
+            assert torch.equal(parts[1], ff.round_tf32(ref - hi))
+            err_bound = 2.0 ** -21
+        assert float((hi + parts[1] - ref).abs().max()) <= err_bound
+    assert mel.shape == (np_, mel_t.shape[1])
+    np.testing.assert_array_equal(mel[:n_bins].numpy(), mel_t)
+    assert not mel[n_bins:].any()
+
+
+@pytest.mark.parametrize("batch,n_samples,geometry", [
+    (8, 77120, "16k"), (64, 64000, "16k"), (1, 160000, "16k"), (2, 64000, "16k"),
+    (2, 88200, "22k"), (64, 88200, "22k"), (1, 16000, "16k")])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_tile_rule_covers_each_clip_exactly(batch, n_samples, geometry, precision):
+    cfg = FrontendConfig(**(GEOMETRY_22K if geometry == "22k" else {}))
+    _, _, used, _, _, _ = ff._framing_plan(cfg, n_samples)
+    kp, np_ = ff.padded_sizes(cfg)
+    bm = ff.tile_frames(batch, used, kp, np_, precision, n_sm=132)
+    assert bm in ff.TILE_FRAMES
+    assert ff.mma_smem_bytes(bm, kp, np_, precision) <= ff.SMEM_BYTES
+    gx, gy = ff.tile_grid(batch, used, bm)
+    assert gy == batch
+    covered = np.zeros(used, np.int64)
+    for x in range(gx):  # each block: frames [x * bm, min(...)) of one clip
+        lo, hi = x * bm, min((x + 1) * bm, used)
+        assert 0 <= lo < hi <= used
+        covered[lo:hi] += 1
+    assert (covered == 1).all()  # the grid covers used_frames exactly, once
+    # a larger tile only where the grid still fills the card
+    bigger = [t for t in ff.TILE_FRAMES if t > bm]
+    for t in bigger:
+        fits = ff.mma_smem_bytes(t, kp, np_, precision) <= ff.SMEM_BYTES
+        assert not fits or 8 * np.prod(ff.tile_grid(batch, used, t)) < 7 * 132
+
+
+def test_tile_rule_at_the_main_path_shapes():
+    cfg = FrontendConfig()
+    kp, np_ = ff.padded_sizes(cfg)
+    assert ff.tile_frames(8, 480, kp, np_, "default", 132) == 32  # serving: 120 blocks
+    assert ff.tile_frames(64, 384, kp, np_, "highest", 132) == 64  # training: 384 blocks
+    kp22, np22 = ff.padded_sizes(FrontendConfig(**GEOMETRY_22K))
+    assert ff.mma_smem_bytes(64, kp22, np22, "default") > ff.SMEM_BYTES  # 22.05 kHz: <= 32
+
+
+def test_fused_wrapper_refuses_unknown_variant():
+    wav = torch.zeros(2, 16000 * 2)
+    with pytest.raises(ValueError, match="variant"):
+        ff.fused_log_mel_patches(wav, FrontendConfig(), "default", _variant="wgmma")
+    before = dict(ff.LAUNCHES_BY_VARIANT)
+    for variant in ("mma", "simt"):  # a CPU tensor takes the plain version: no launch
+        ff.fused_log_mel_patches(wav, FrontendConfig(), "default", _variant=variant)
+    assert ff.LAUNCHES_BY_VARIANT == before
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -207,11 +352,22 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("variant", ["mma", "simt"])
 @pytest.mark.parametrize("precision,tol", [("highest", 2e-4), ("bf16x3", 5e-4), ("default", 1e-3)])
-def test_kernel_matches_plain_version_on_the_card(cuda, precision, tol):
-    wav = torch.from_numpy(_wav(6, (8, 77120))).to(cuda)
-    out = ff.fused_log_mel_patches(wav, FrontendConfig(), precision)
-    torch.cuda.synchronize()
-    ref = ff.fused_log_mel_patches_reference(wav, FrontendConfig(), precision)
-    assert out.shape == ref.shape == (8, 5, 96, 64)
-    assert float((out - ref).abs().max()) <= tol
+def test_kernel_matches_plain_version_on_the_card(cuda, precision, tol, variant):
+    for shape, cfg in (((8, 77120), FrontendConfig()),
+                       ((2, 88200), FrontendConfig(**GEOMETRY_22K))):
+        wav = torch.from_numpy(_wav(6, shape)).to(cuda)
+        before = dict(ff.LAUNCHES_BY_VARIANT)
+        out = ff.fused_log_mel_patches(wav, cfg, precision, _variant=variant)
+        torch.cuda.synchronize()
+        assert ff.LAUNCHES_BY_VARIANT[variant] == before[variant] + 1
+        ref = ff.fused_log_mel_patches_reference(wav, cfg, precision)
+        assert out.shape == ref.shape
+        assert float((out - ref).abs().max()) <= tol
+    if variant == "mma":  # every tile that fits, at the serving shape
+        wav = torch.from_numpy(_wav(7, (8, 77120))).to(cuda)
+        ref = ff.fused_log_mel_patches_reference(wav, FrontendConfig(), precision)
+        for bm in ff.TILE_FRAMES:
+            out = ff.fused_log_mel_patches(wav, FrontendConfig(), precision, _bm=bm)
+            assert float((out - ref).abs().max()) <= tol
