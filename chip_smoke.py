@@ -6,17 +6,21 @@
 Phases, in order; any failure raises and the script exits non-zero without
 printing its last line:
   1. device: the card's name, power limit and compute capability (9, 0);
-  2. build: every kernel source in mla_tpu_torch/csrc, one nvcc each, all
-     started together, timed, with nvcc's ptxas report;
+  2. build: every kernel source in mla_tpu_torch/csrc (fused_frontend.cu,
+     row_merge.cu, adpcm.cu), one nvcc each, all started together, timed,
+     with nvcc's ptxas report;
   3. each kernel against its plain torch version on the card: the fused
      front-end, both variants (mma, the tensor-core kernel the main path
-     takes, and simt, the first design), at the serving and training shapes
-     and a few others, per precision mode, and against the front-end golden
-     file (TF32 off); the
+     takes, and simt, the first design), at the serving, training and
+     flagship ([128, 160000]) shapes and a few others, per precision mode,
+     and against the front-end golden file (TF32 off); the
      row-merge probe's kernels bit-exact at five cases (three aligned shapes
      up to [16384, 4096], an odd [33, 7], and a view that starts one float
      into its buffer), each case launching the row-merge variant
      (row_merge_bulk or row_merge_generic) that row_merge_variant names;
+     the ADPCM decode kernel bit-exact against its plain version, the
+     golden wires (tests/golden/adpcm_wire.npz, adpcm2_wire.npz) and the
+     host decoder, both bit widths, at the serving and training shapes;
   4. the probe entry point (python -m mla_tpu_torch.probe_row_merge): its
      verdict must be "supported", through scale2 and row_merge_bulk;
   5. the serving path at full width: BatchedStreamingServer on the
@@ -25,24 +29,38 @@ printing its last line:
      streams of ~20-30 s fed in uneven blocks, ticks, flushes and scores;
      the front-end kernel must run once per device step, every launch on
      the mma variant, and the scores must agree with the same server on the
-     torch-ops front-end;
+     torch-ops front-end; then the same on the adpcm4 wire (and, shorter,
+     adpcm2): one decode launch per device step, and the scores held
+     against the float32-wire server fed the codec's round trip;
   6. the training path at full width: fit() on the us8k_fused_frontend
      preset as shipped (front-end kernel at "highest", batch 64 of 4 s
      clips), cut only in num_steps / eval_every / checkpoint_every; finite
      losses, one front-end launch per train step and per eval batch, every
      launch on the mma variant, resume() restoring exactly the trained weights, and the first step's
-     loss on the kernel against the torch-ops front-end;
+     loss on the kernel against the torch-ops front-end; then a short fit()
+     with data.staging_dtype=adpcm4 (one decode launch per train step) and
+     its first step against float32 staging of the decoded clips;
+  6b. the flagship program (mla_tpu_torch/entry.py, audioset_full_dp as
+     shipped): entry()'s 4 x 10 s forward, finite [4, 527] probs, the
+     fidelity record max |probs("default") - probs("highest")| with TF32
+     off, and pallas against xla; then full-width train steps at batch
+     128 x 10 s on each front-end impl: finite losses, the first step's
+     loss pallas against xla, every front-end launch on mma, step times
+     on the host clock and with CUDA events, peak memory, one profile;
   7. times (median of 30 after warm-up): each kernel, its plain version and
      the library call where one exists, with CUDA events (the front-end's
      two variants per mode at the serving and training shapes, and the mma
      variant at each frame tile; the probe
      kernels on inputs that are not in the L2 cache, at every case but
      [33, 7], with row_merge_generic also timed at the aligned shapes,
-     where the wrapper takes row_merge_bulk); one server tick
-     and one train step on the host clock; each kernel's bound; and
-     torch.profiler breakdowns of ten ticks and five train steps.
-Launch counts are set to 0 just before each path (probe, serving,
-training) is driven and read just after. The script prints the card's line
+     where the wrapper takes row_merge_bulk; the ADPCM decode per width at
+     the serving and training shapes on L2-cold wires; the mma front-end
+     at the flagship's [128, 160000]); one server tick (int16 and
+     adpcm4) and one train step on the host clock; each kernel's bound;
+     and torch.profiler breakdowns of ten ticks and five train steps.
+Launch counts are set to 0 just before each path (probe, serving on each
+wire, training, adpcm4-staged training, the flagship forward and train
+steps) is driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
 build/chip_smoke.json.
@@ -90,10 +108,25 @@ PROBE_CASES = (((960, 160), 3, 0, "bulk"), ((4096, 1024), 4, 0, "bulk"),
 PROBE_TIMED = tuple(c for c in PROBE_CASES if c[0] != (33, 7))
 TRAIN_CUT = {"train.num_steps": 30, "train.eval_every": 15,
              "train.checkpoint_every": 15, "train.log_every": 5}
+ADPCM_TRAIN_CUT = {"train.num_steps": 5, "train.eval_every": 5, "train.checkpoint_every": 0,
+                   "train.log_every": 1, "data.staging_dtype": "adpcm4"}
+# scores, adpcm server vs float32 server fed the codec's round trip: the
+# active rows' decoded samples are identical (the decode is bit-exact), so
+# the two differ only where other rows' masked inputs differ (adpcm2's
+# silence decodes to +-3 LSB) and a bf16 rounding flips
+ADPCM_SCORE_BUDGET = 1e-3
+# first-step loss, adpcm4 staging vs float32 staging of the decoded clips:
+# identical inputs after the bit-exact decode
+ADPCM_LOSS_BUDGET = 1e-4
+# (label, shape, block): the decode kernel at the serving and training sites
+ADPCM_SITES = (("serve [8, 77120]", (8, 77120), 64), ("train [64, 64000]", (64, 64000), 256))
+FLAGSHIP_BATCH = 128  # bench.py's batch of 10 s clips
+FLAGSHIP_STEPS = 3  # train steps per front-end impl before the timed ones
 # (substring of the CUDA symbol, kernel): the port's own kernels are launched
 # through ctypes, outside any operator, so the profiler is read by name
 PORT_KERNELS = (("fused_log_mel", "fused_log_mel_patches"), ("scale2_kernel", "scale2"),
-                ("row_merge_bulk", "row_merge"), ("row_merge_generic", "row_merge"))
+                ("row_merge_bulk", "row_merge"), ("row_merge_generic", "row_merge"),
+                ("adpcm_decode", "adpcm_decode"))
 
 
 def _probe_key(shape, rows, offset) -> str:
@@ -199,6 +232,19 @@ def _frontend_bound(ff, trimmed_spectral_bases, fcfg, b: int, n: int) -> dict:
             "mel_flops": mel_flops}
 
 
+def _schedule(streams, rng):
+    """Uneven feed blocks of 3000-40000 samples, the streams interleaved:
+    [(stream, lo, hi)]."""
+    schedule, pos = [], [0] * len(streams)
+    while any(p < len(s) for p, s in zip(pos, streams)):
+        for i, s in enumerate(streams):
+            if pos[i] < len(s):
+                hi = min(len(s), pos[i] + int(rng.integers(3000, 40000)))
+                schedule.append((i, pos[i], hi))
+                pos[i] = hi
+    return schedule
+
+
 def _drive(srv, streams, schedule):
     """Feed the streams in the schedule's uneven blocks with ticks between,
     drain, flush every stream, then replace the last stream by a lone
@@ -230,11 +276,16 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from mla_tpu_torch import probe_row_merge
     from mla_tpu_torch.config import FrontendConfig, get_config
+    from mla_tpu_torch.data import adpcm
+    from mla_tpu_torch.data.audio_io import pcm16_quantize
     from mla_tpu_torch.data.sampler import BalancedSampler
     from mla_tpu_torch.data.synthetic import make_dataset
     from mla_tpu_torch.models.convert import flat_to_state_dict, state_dict_to_flat
     from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.entry import entry, flagship_config, flagship_forward
     from mla_tpu_torch.ops import _build
+    from mla_tpu_torch.ops import adpcm as ad
+    from mla_tpu_torch.ops import frontend as fe
     from mla_tpu_torch.ops import fused_frontend as ff
     from mla_tpu_torch.ops import row_merge as rm
     from mla_tpu_torch.ops.frontend import trimmed_spectral_bases
@@ -244,6 +295,7 @@ def main() -> int:
     from mla_tpu_torch.utils.cuda_timing import device_median_ms, l2_cold
 
     record = {}
+    t_start = time.perf_counter()
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -258,7 +310,8 @@ def main() -> int:
     tag = f"({card})"
 
     # 2. build: one nvcc per source, all started together
-    sources = {"fused_frontend": ff._SIGNATURES, "row_merge": rm._SIGNATURES}
+    sources = {"fused_frontend": ff._SIGNATURES, "row_merge": rm._SIGNATURES,
+               "adpcm": ad._SIGNATURES}
 
     def build(src):
         t0 = time.perf_counter()
@@ -289,7 +342,10 @@ def main() -> int:
     cases = [("serve [8, 77120]", (8, 77120), cfg), ("train [64, 64000]", (64, 64000), cfg),
              ("10 s batch [4, 160000]", (4, 160000), cfg), ("1-D [160000]", (160000,), cfg),
              ("0.5 s patches [2, 64000]", (2, 64000), geo),
-             ("22.05 kHz [2, 88200]", (2, 88200), sr22)]
+             ("22.05 kHz [2, 88200]", (2, 88200), sr22),
+             # the flagship's batch (bench.py's 128 x 10 s): BM 64, 16 tiles per
+             # clip, a ragged last tile
+             ("flagship [128, 160000]", (FLAGSHIP_BATCH, 160000), flagship_config().frontend)]
     # errs[variant]["<case> <precision>"]: max |kernel - plain version|
     errs = {v: {} for v in VARIANTS}
     for label, shape, c in cases:
@@ -349,6 +405,44 @@ def main() -> int:
         del x, got, want
     record["probe_max_abs_err"] = probe_errs
 
+    # the ADPCM decode: bit-exact against the golden wires, its plain version
+    # on the card and the host decoder, per width at both sites
+    codecs = {4: (adpcm.adpcm4_encode, adpcm.adpcm4_decode, "adpcm_wire.npz"),
+              2: (adpcm.adpcm2_encode, adpcm.adpcm2_decode, "adpcm2_wire.npz")}
+    prng = np.random.default_rng(SEED)
+    adpcm_wires = {}  # (bits, site label) -> the wire on the card, for the timing
+    adpcm_errs = {}  # case -> max |kernel - plain version| (0.0: bit-exact)
+
+    def check_decode(what, wire, n, block, bits, want):
+        before = ad.LAUNCHES
+        got = ad.adpcm_decode(wire, n, block, bits)
+        torch.cuda.synchronize()
+        if ad.LAUNCHES != before + 1:
+            raise RuntimeError(f"adpcm_decode {what}: the kernel did not launch")
+        plain = ad.adpcm_decode_reference(wire, n, block, bits)
+        if got.shape == plain.shape:
+            adpcm_errs[what] = float((got - plain).abs().max())
+        for against, w in (("its plain version", plain), ("the reference", want)):
+            if got.shape != w.shape or not torch.equal(got, w):
+                err = float((got - w).abs().max()) if got.shape == w.shape else None
+                raise RuntimeError(f"adpcm_decode {what} is not bit-exact against {against} "
+                                   f"(shape {tuple(got.shape)}, max |diff| {err})")
+        print(f"kernel vs plain, adpcm_decode {what}: bit-exact (and against the reference)")
+
+    for bits, (enc, dec, golden_file) in codecs.items():
+        g = np.load(os.path.join(ROOT, "tests", "golden", golden_file))
+        for blk in (64, 256):
+            check_decode(f"{bits}-bit golden block {blk}", torch.from_numpy(g[f"wire{blk}"]).cuda(),
+                         g["x"].size, blk, bits, torch.from_numpy(g[f"dec{blk}"]).cuda())
+        for label, shape, blk in ADPCM_SITES:
+            pcm = pcm16_quantize(0.3 * prng.standard_normal(shape))
+            wire_h = enc(pcm, block=blk)
+            wire = torch.from_numpy(wire_h).cuda()
+            check_decode(f"{bits}-bit {label} block {blk}", wire, shape[1], blk, bits,
+                         torch.from_numpy(dec(wire_h, n=shape[1], block=blk)).cuda())
+            adpcm_wires[bits, label] = wire
+    record["adpcm_max_abs_err"] = adpcm_errs
+
     # 4. the probe entry point
     for k in rm.LAUNCHES:
         rm.LAUNCHES[k] = 0
@@ -382,13 +476,7 @@ def main() -> int:
         t = np.arange(n) / sr
         tone = 0.3 * np.sin(2 * np.pi * (220 + 110 * i) * t)
         streams.append((tone + 0.05 * rng.standard_normal(n)).astype(np.float32))
-    schedule, pos = [], [0] * 8
-    while any(p < len(s) for p, s in zip(pos, streams)):
-        for i, s in enumerate(streams):
-            if pos[i] < len(s):
-                hi = min(len(s), pos[i] + int(rng.integers(3000, 40000)))
-                schedule.append((i, pos[i], hi))
-                pos[i] = hi
+    schedule = _schedule(streams, rng)
     srv = BatchedStreamingServer(scfg, state_dict, max_streams=8, chunk_patches=5,
                                  transfer_dtype="int16")
     srv.warmup()
@@ -421,6 +509,56 @@ def main() -> int:
         raise RuntimeError(f"pallas and xla servers disagree: {score_err}")
     record.update(main_path_dispatches=dispatches, main_path_launches=serve_launches,
                   score_err_vs_xla=score_err)
+
+    # the same serving path on the adpcm wires: float32 feeds encoded at feed
+    # time, the wire decoded on the card once per device step; held against
+    # the float32-wire server fed the codec's round trip of the same audio.
+    # adpcm2 runs shorter: four streams of 12 s.
+    adpcm_serve = {}
+    asrv = None
+    for wire_name, wstreams in (("adpcm4", streams),
+                                ("adpcm2", [s[:12 * sr] for s in streams[:4]])):
+        bits = int(wire_name[-1])
+        enc, dec, _ = codecs[bits]
+        wschedule = schedule if wire_name == "adpcm4" else _schedule(wstreams, rng)
+        wsrv = BatchedStreamingServer(scfg, state_dict, max_streams=8, chunk_patches=5,
+                                      transfer_dtype=wire_name)
+        wsrv.warmup()
+        ad.LAUNCHES = ff.LAUNCHES = 0
+        ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
+        d0 = wsrv.dispatches
+        wscores = _drive(wsrv, wstreams, wschedule)
+        torch.cuda.synchronize()
+        steps, dec_launches = wsrv.dispatches - d0, ad.LAUNCHES
+        fe_by_variant = dict(ff.LAUNCHES_BY_VARIANT)
+        print(f"serving path, {wire_name} wire: {steps} device steps, adpcm_decode launches "
+              f"{dec_launches}, fused_log_mel_patches launches {ff.LAUNCHES} {fe_by_variant}")
+        if dec_launches != steps or steps < 1:
+            raise RuntimeError(f"{wire_name}: decode launches {dec_launches} != device steps {steps}")
+        if fe_by_variant != {"mma": steps, "simt": 0}:
+            raise RuntimeError(f"{wire_name}: front-end launches {fe_by_variant} != {steps} on mma")
+        if not np.isfinite(wscores).all() or wscores.min() < 0 or wscores.max() > 1:
+            raise RuntimeError(f"{wire_name}: bad scores")
+        round_trip = [dec(enc(s, block=adpcm.SERVE_BLOCK), n=len(s), block=adpcm.SERVE_BLOCK)
+                      for s in wstreams]
+        fsrv = BatchedStreamingServer(scfg, state_dict, max_streams=8, chunk_patches=5,
+                                      transfer_dtype="float32")
+        fscores = _drive(fsrv, round_trip, wschedule)
+        werr = float(np.abs(wscores - fscores).max())
+        print(f"serving path, {wire_name} wire: scores vs the float32 server on the round-tripped "
+              f"audio, max |diff| {werr:.3e} (budget {ADPCM_SCORE_BUDGET:g})")
+        if wire_name == "adpcm4":  # the codec's own effect, not a check
+            print(f"serving path, adpcm4 wire: scores vs the int16 server on the original "
+                  f"audio, max |diff| {float(np.abs(wscores - scores).max()):.3e}")
+        if werr > ADPCM_SCORE_BUDGET:
+            raise RuntimeError(f"{wire_name} server disagrees with the float32 server: {werr}")
+        adpcm_serve[wire_name] = {"device_steps": steps, "decode_launches": dec_launches,
+                                  "frontend_launches": fe_by_variant["mma"],
+                                  "score_err_vs_round_trip": werr, "streams": len(wstreams)}
+        if wire_name == "adpcm4":
+            asrv = wsrv  # timed below
+        del fsrv
+    record["adpcm_serving"] = adpcm_serve
 
     # 6. the training path at full width
     tcfg = get_config("us8k_fused_frontend", TRAIN_CUT)
@@ -481,6 +619,128 @@ def main() -> int:
     record.update(train_counts=counts, train_launches=train_launches, train_losses=losses,
                   train_eval=result.eval_stats, fit_s=fit_s, first_step_loss=first_loss,
                   first_step_loss_err=loss_err)
+
+    # training on adpcm4 staging: the set staged once on the card in the wire
+    # (256-sample blocks), each batch decoded inside the train step; the eval
+    # set stays float32, as in the reference, so eval batches decode nothing
+    acfg = get_config("us8k_fused_frontend", ADPCM_TRAIN_CUT)
+    ws_a = os.path.join(ROOT, "build", "chip_smoke_train_adpcm4")
+    shutil.rmtree(ws_a, ignore_errors=True)
+    ad.LAUNCHES = ff.LAUNCHES = 0
+    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
+    ares = loop.fit(acfg, workspace=ws_a)
+    torch.cuda.synchronize()
+    acounts, a_decode, a_fe = dict(ares.counts), ad.LAUNCHES, dict(ff.LAUNCHES_BY_VARIANT)
+    alosses = [h["loss"] for h in ares.history]
+    print(f"adpcm4-staged training: {acounts['train_steps']} train steps + "
+          f"{acounts['eval_batches']} eval batches, adpcm_decode launches {a_decode}, "
+          f"fused_log_mel_patches launches {a_fe}; losses {alosses}")
+    if a_decode != acounts["train_steps"] or acounts["train_steps"] != acfg.train.num_steps:
+        raise RuntimeError(f"adpcm4 staging: decode launches {a_decode} != train steps {acounts}")
+    if a_fe != {"mma": acounts["train_steps"] + acounts["eval_batches"], "simt": 0}:
+        raise RuntimeError(f"adpcm4 staging: front-end launches {a_fe} for {acounts}")
+    if not alosses or not np.isfinite(alosses).all():
+        raise RuntimeError(f"adpcm4 staging: non-finite loss {alosses}")
+    # its first batch, staged in the wire and as float32 of the decoded clips
+    n_clip = ds.x.shape[1]
+    wire1 = adpcm.adpcm4_encode(pcm16_quantize(ds.x[idx]))
+    x_wire = torch.from_numpy(wire1).cuda()
+    x_dec = torch.from_numpy(adpcm.adpcm4_decode(wire1, n=n_clip)).cuda()
+    stage_loss = {}
+    for stage, xb in (("adpcm4", x_wire), ("float32", x_dec)):
+        c = get_config("us8k_fused_frontend", {**ADPCM_TRAIN_CUT, "data.staging_dtype": stage})
+        m = build_model(c.model, seed=c.train.seed)
+        _, loss = make_train_step(c, m, "waveform", clip_samples=n_clip)(
+            create_train_state(c, m), xb, y1)
+        stage_loss[stage] = float(loss)
+    stage_err = abs(stage_loss["adpcm4"] - stage_loss["float32"])
+    print(f"adpcm4-staged training: first-step loss {stage_loss['adpcm4']:.6f}, float32 staging "
+          f"of the decoded clips {stage_loss['float32']:.6f}, |diff| {stage_err:.3e} (budget "
+          f"{ADPCM_LOSS_BUDGET:g}); fit's logged step-1 loss {alosses[0]:.6f}")
+    if stage_err > ADPCM_LOSS_BUDGET:
+        raise RuntimeError(f"adpcm4 vs float32 staging, first-step loss: {stage_err}")
+    record["adpcm4_training"] = {"counts": acounts, "decode_launches": a_decode,
+                                 "frontend_launches": a_fe, "losses": alosses,
+                                 "first_step_loss": stage_loss, "first_step_loss_err": stage_err}
+
+    # 6b. the flagship program: entry()'s forward, its fidelity record, and
+    # full-width train steps at bench.py's batch on each front-end impl
+    fcfg = flagship_config()
+    fn, (fmodel, fwav) = entry(seed=SEED)
+    probs = fn(fmodel, fwav)
+    torch.cuda.synchronize()
+    if tuple(probs.shape) != (4, fcfg.model.n_classes) or not bool(torch.isfinite(probs).all()):
+        raise RuntimeError(f"flagship forward: shape {tuple(probs.shape)} or non-finite")
+
+    ff.LAUNCHES = 0
+    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
+    probs_p = flagship_forward(flagship_config(overrides={"frontend.impl": "pallas"}))(fmodel, fwav)
+    torch.cuda.synchronize()
+    fwd_launches = dict(ff.LAUNCHES_BY_VARIANT)
+    probs_h = flagship_forward(flagship_config(overrides={"frontend.precision": "highest"}))(fmodel, fwav)
+    fidelity = float((probs - probs_h).abs().max())
+    with torch.inference_mode():
+        lm = {p: fe.apply_frontend(fwav, flagship_config(overrides={"frontend.precision": p}).frontend)
+              for p in ("default", "highest")}
+    logmel_err = float((lm["default"] - lm["highest"]).abs().max())
+    pallas_err = float((probs_p - probs).abs().max())
+    print(f"flagship forward (entry(), 4 x 10 s): probs {tuple(probs.shape)} in "
+          f"[{float(probs.min()):.4f}, {float(probs.max()):.4f}]; fidelity, TF32 off: max "
+          f"|probs(default) - probs(highest)| {fidelity:.3e} (log-mel {logmel_err:.3e}); max "
+          f"|probs(pallas) - probs(xla)| {pallas_err:.3e} (bf16 budget {BF16_SCORE_BUDGET:g}); "
+          f"front-end launches {fwd_launches}")
+    if pallas_err > BF16_SCORE_BUDGET or fwd_launches != {"mma": 1, "simt": 0}:
+        raise RuntimeError(f"flagship forward pallas vs xla: {pallas_err}, launches {fwd_launches}")
+    del fmodel, lm
+
+    frng = np.random.default_rng(SEED)
+    fwav = torch.from_numpy((frng.standard_normal((FLAGSHIP_BATCH, fwav.shape[1])) * 0.1)
+                            .astype(np.float32)).cuda()
+    fy = torch.from_numpy((frng.random((FLAGSHIP_BATCH, fcfg.model.n_classes)) < 0.05)
+                          .astype(np.float32)).cuda()
+    flagship = {}
+    for impl in ("xla", "pallas"):
+        c = flagship_config(overrides={"frontend.impl": impl})
+        m = build_model(c.model, seed=SEED)
+        st = create_train_state(c, m)
+        fstep = make_train_step(c, m, "waveform")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ff.LAUNCHES = 0
+        ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
+        flosses = [float(fstep(st, fwav, fy)[1]) for _ in range(FLAGSHIP_STEPS)]
+        torch.cuda.synchronize()
+        f_launches = dict(ff.LAUNCHES_BY_VARIANT)
+        want = {"mma": FLAGSHIP_STEPS if impl == "pallas" else 0, "simt": 0}
+        if f_launches != want or not np.isfinite(flosses).all():
+            raise RuntimeError(f"flagship train steps, {impl}: losses {flosses}, front-end "
+                               f"launches {f_launches} (want {want})")
+        host_ms = _host_median_ms(lambda: fstep(st, fwav, fy), reps=5, warmup=1)
+        event_ms = device_median_ms(lambda: fstep(st, fwav, fy), reps=5, inner=1, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        flagship[impl] = {"losses": flosses, "frontend_launches": f_launches,
+                          "step_ms_host": host_ms, "step_ms_events": event_ms,
+                          "clips_per_s_host": FLAGSHIP_BATCH / (host_ms / 1e3),
+                          "peak_memory_gb": peak}
+        print(f"flagship train step, {impl} front-end, batch {FLAGSHIP_BATCH} x 10 s: losses "
+              f"{flosses}; host clock {host_ms:.4f} ms, CUDA events {event_ms:.4f} ms, "
+              f"{FLAGSHIP_BATCH / (host_ms / 1e3):.1f} clips/s; peak memory {peak:.2f} GB; "
+              f"front-end launches {f_launches} {tag}")
+        if impl == "xla":  # the preset's own front-end: the profile
+            flagship["profile"] = _report_profile(
+                "flagship train step", 2, host_ms, _profile(lambda: fstep(st, fwav, fy), 2), tag)
+        del m, st, fstep
+        torch.cuda.empty_cache()
+    f_loss_err = abs(flagship["pallas"]["losses"][0] - flagship["xla"]["losses"][0])
+    print(f"flagship train step: first-step loss pallas {flagship['pallas']['losses'][0]:.6f}, xla "
+          f"{flagship['xla']['losses'][0]:.6f}, |diff| {f_loss_err:.3e} (bf16 budget "
+          f"{BF16_LOSS_BUDGET:g})")
+    if f_loss_err > BF16_LOSS_BUDGET:
+        raise RuntimeError(f"flagship first-step loss, pallas vs xla: {f_loss_err}")
+    record["flagship"] = {"probs_range": [float(probs.min()), float(probs.max())],
+                          "fidelity_default_vs_highest": fidelity, "logmel_default_vs_highest":
+                          logmel_err, "pallas_vs_xla": pallas_err, "forward_launches": fwd_launches,
+                          "first_step_loss_err": f_loss_err, **flagship}
 
     # 7. times
     # the fused front-end at the serving and the training shape: both
@@ -587,6 +847,51 @@ def main() -> int:
         del nxt
     record.update(probe_ms=probe_ms)
 
+    # the ADPCM decode per width at both sites, on wires that are not in the
+    # L2 cache, beside its plain version; its bound is bytes (every wire
+    # byte read once, every f32 sample written once)
+    adpcm_ms = {}
+    for (bits, label), wire in adpcm_wires.items():
+        _, (_, n_site), blk = next(site for site in ADPCM_SITES if site[0] == label)
+        nxt, n_copies = l2_cold(wire)
+        nbytes = ad.decode_bytes_moved(wire, n_site)
+        t = {"ms": device_median_ms(lambda: ad.adpcm_decode(nxt(), n_site, blk, bits), inner=20),
+             "plain_ms": device_median_ms(
+                 lambda: ad.adpcm_decode_reference(nxt(), n_site, blk, bits),
+                 reps=5, inner=2, warmup=1),
+             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes, "input_copies": n_copies,
+             "shape": list(wire.shape), "block": blk}
+        adpcm_ms[f"{bits}-bit {label}"] = t
+        print(f"time: adpcm_decode {bits}-bit {label} block {blk}: kernel {t['ms'] * 1e3:.3f} us, "
+              f"plain version {t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({nbytes / 1e6:.4f} MB at {PEAK_BYTES / 1e12:g} TB/s, bytes); "
+              f"{t['bound_ms'] / t['ms']:.4f} of bound {tag}")
+        del nxt
+    record["adpcm_ms"] = adpcm_ms
+
+    # the mma front-end at the flagship's site (bench.py's batch, "default")
+    fw = (torch.randn((FLAGSHIP_BATCH, 10 * sr), generator=gen) * 0.1).cuda()
+    fprec = fcfg.frontend.precision
+    fbound = _frontend_bound(ff, trimmed_spectral_bases, fcfg.frontend, *fw.shape)
+    flagship_fe = {"ms": device_median_ms(lambda: ff.fused_log_mel_patches(fw, fcfg.frontend,
+                                                                           fprec)),
+                   "simt_ms": device_median_ms(lambda: ff.fused_log_mel_patches(
+                       fw, fcfg.frontend, fprec, _variant="simt")),
+                   "plain_ms": device_median_ms(lambda: ff.fused_log_mel_patches_reference(
+                       fw, fcfg.frontend, fprec)),
+                   "torch_ops_ms": device_median_ms(lambda: fe.waveform_to_patches(
+                       fw, fcfg.frontend)),
+                   "bound_ms": fbound["bound_ms"][fprec], "bound_by": fbound["bound_by"][fprec],
+                   "precision": fprec, "shape": list(fw.shape)}
+    print(f"time: fused_log_mel_patches {fprec} flagship {list(fw.shape)}: mma "
+          f"{flagship_fe['ms']:.4f} ms, simt {flagship_fe['simt_ms']:.4f} ms, plain version "
+          f"{flagship_fe['plain_ms']:.4f} ms, torch-ops front-end (impl xla) "
+          f"{flagship_fe['torch_ops_ms']:.4f} ms, bound {flagship_fe['bound_ms']:.4f} ms "
+          f"({flagship_fe['bound_by']}); {flagship_fe['bound_ms'] / flagship_fe['ms']:.4f} of "
+          f"bound {tag}")
+    record["flagship_frontend"] = flagship_fe
+    del fw
+
     # one server tick, host clock, and its profile
     n_prof = 10
     tick_audio = (0.1 * rng.standard_normal(
@@ -596,10 +901,17 @@ def main() -> int:
     tick_med = _host_median_ms(srv.tick)
     print(f"time: server tick, 8 int16 streams x 5 patches, host clock: {tick_med:.4f} ms {tag}")
     tick_prof = _report_profile("tick", n_prof, tick_med, _profile(srv.tick, n_prof), tag)
+    for _ in range(8):
+        asrv.feed(asrv.open(), tick_audio)
+    ad.LAUNCHES = 0
+    atick_med = _host_median_ms(asrv.tick)
+    print(f"time: server tick, 8 adpcm4 streams x 5 patches, host clock: {atick_med:.4f} ms; "
+          f"{ad.LAUNCHES} decode launches in {REPS + 3} ticks {tag}")
 
     # one train step at full width, host clock, and its profile
     state = result.state
     step = make_train_step(tcfg, state.model, "waveform", clip_samples=x1.shape[1])
+    torch.cuda.reset_peak_memory_stats()
     step_med = _host_median_ms(lambda: step(state, x1, y1))
     clips_s = bs / (step_med / 1e3)
     print(f"time: train step, batch {bs} x {x1.shape[1]} samples ({bs * 4} patches), host "
@@ -608,7 +920,7 @@ def main() -> int:
     step_prof = _report_profile("train step", n_steps_prof, step_med,
                                 _profile(lambda: step(state, x1, y1), n_steps_prof), tag)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"memory: peak allocated {peak_gb:.2f} GB over the whole run {tag}")
+    print(f"memory: peak allocated {peak_gb:.2f} GB over the us8k train steps {tag}")
     record.update(kernel_ms=kernel_ms, plain_ms=plain_ms, frontend_serving=st,
                   frontend_training=tt, tick_ms=tick_med, bound_ms=bound,
                   bound_ms_f32_cores=sbound["f32_cores_ms"], bytes=sbound["bytes"],
@@ -618,18 +930,24 @@ def main() -> int:
                   train_frontend={"ms": train_kernel_ms, "plain_ms": train_plain_ms,
                                   "precision": tprec, "shape": list(w64.shape), **tbound},
                   frontend_launches={"serve": serve_by_variant, "train": train_by_variant},
-                  peak_memory_gb=peak_gb)
+                  peak_memory_gb=peak_gb, adpcm4_tick_ms=atick_med)
 
     main_probe = _probe_key(*PROBE_CASES[0][:3])
+    # the front-end kernel's launches on every path that takes it
+    fe_by_path = {"serve": serve_by_variant, "train": train_by_variant,
+                  "serve_adpcm4": {"mma": adpcm_serve["adpcm4"]["frontend_launches"], "simt": 0},
+                  "serve_adpcm2": {"mma": adpcm_serve["adpcm2"]["frontend_launches"], "simt": 0},
+                  "train_adpcm4": a_fe, "flagship_forward": fwd_launches,
+                  "flagship_train": flagship["pallas"]["frontend_launches"]}
     kernels = [{
         "name": "fused_log_mel_patches",
         "variant": "mma",
         "route": "cuda",
         "source": "mla_tpu_torch/csrc/fused_frontend.cu",
         "replaces": "mla_tpu/ops/pallas_frontend.py:154",
-        "launches": serve_launches + train_launches,
-        "launches_by_path": {"serve": serve_launches, "train": train_launches},
-        "launches_by_variant": {v: serve_by_variant[v] + train_by_variant[v] for v in VARIANTS},
+        "launches": sum(v["mma"] + v["simt"] for v in fe_by_path.values()),
+        "launches_by_path": {k: v["mma"] + v["simt"] for k, v in fe_by_path.items()},
+        "launches_by_variant": {v: sum(p[v] for p in fe_by_path.values()) for v in VARIANTS},
         "max_abs_err": errs["mma"][f"serve [8, 77120] {MAIN_PRECISION}"],
         "max_abs_err_by_case": errs["mma"],
         "simt_max_abs_err_by_case": errs["simt"],
@@ -658,9 +976,38 @@ def main() -> int:
                   "plain_ms_by_precision": tt["plain_ms"], "tile": tt["tile"],
                   "kernel_ms_by_tile": tt["tile_ms"],
                   "bound_ms_by_precision": tbound["bound_ms"]},
+        "flagship": flagship_fe,
         "tick_ms": tick_med,
         "train_step_ms": step_med,
     }]
+    main_adpcm = adpcm_ms["4-bit serve [8, 77120]"]
+    kernels.append({
+        "name": "adpcm_decode",
+        "route": "cuda",
+        "source": "mla_tpu_torch/csrc/adpcm.cu",
+        "replaces": "mla_tpu/data/adpcm.py:435",
+        "replaces_note": "_decode_jnp (4-bit) and _decode2_jnp (:379, 2-bit), a lax.scan, "
+                         "not a pallas_call: a port-only kernel",
+        "launches": (adpcm_serve["adpcm4"]["decode_launches"]
+                     + adpcm_serve["adpcm2"]["decode_launches"] + a_decode),
+        "launches_by_path": {"serve_adpcm4": adpcm_serve["adpcm4"]["decode_launches"],
+                             "serve_adpcm2": adpcm_serve["adpcm2"]["decode_launches"],
+                             "train_adpcm4": a_decode},
+        "max_abs_err": max(adpcm_errs.values()),
+        "max_abs_err_by_case": adpcm_errs,
+        "ms": main_adpcm["ms"],
+        "plain_ms": main_adpcm["plain_ms"],
+        "bound_ms": main_adpcm["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call decodes IMA ADPCM",
+        "shape": main_adpcm["shape"],
+        "block": main_adpcm["block"],
+        "ms_by_case": {k: v["ms"] for k, v in adpcm_ms.items()},
+        "plain_ms_by_case": {k: v["plain_ms"] for k, v in adpcm_ms.items()},
+        "bound_ms_by_case": {k: v["bound_ms"] for k, v in adpcm_ms.items()},
+        "adpcm4_tick_ms": atick_med,
+    })
     for k, line in (("scale2", 33), ("row_merge", 28)):
         t = probe_ms[k][main_probe]
         by_variant = {"scale2": probe_launches["scale2"]} if k == "scale2" else {
@@ -691,6 +1038,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as fh:
         json.dump({**record, "kernels": kernels}, fh, indent=1)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

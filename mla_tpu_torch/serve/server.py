@@ -10,8 +10,13 @@ front-end -> trunk -> per-level logits -> masked fold on the device. Rows
 that are not ready are folded under a mask, so every tick has the same
 shapes.
 
+On the adpcm4 / adpcm2 wires the buffers hold wire bytes in whole 64-sample
+block units (``data/adpcm.py``): a pre-encoded feed is routed as it is, a
+sample feed is encoded at feed time with a per-stream sub-block remainder,
+and the tick decodes on the device (``ops/adpcm.py``, a CUDA kernel).
+
 Not ported yet (ROADMAP.md queue A): the packed one-upload tick, the
-adpcm4/adpcm2 wires, the timeline ring, a device mesh and weight reload.
+timeline ring, a device mesh and weight reload.
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ import torch
 
 from mla_tpu_torch._device import resolve_device
 from mla_tpu_torch.config import Config
+from mla_tpu_torch.data import adpcm
 from mla_tpu_torch.data.audio_io import mulaw_decode, mulaw_encode, pcm16_quantize
 from mla_tpu_torch.ops import attention_pool as ap
 from mla_tpu_torch.ops import frontend as fe
+from mla_tpu_torch.ops.adpcm import adpcm_decode
 from mla_tpu_torch.serve.streaming import (
     STREAMING_VARIANTS,
     _model_with_weights,
@@ -36,7 +43,8 @@ from mla_tpu_torch.serve.streaming import (
     stream_finalize_scores,
 )
 
-_WIRES = {"float32": np.float32, "int16": np.int16, "uint8": np.uint8}
+_WIRES = {"float32": np.float32, "int16": np.int16, "uint8": np.uint8,
+          "adpcm4": np.uint8, "adpcm2": np.uint8}
 
 
 class BatchedStreamingServer:
@@ -53,14 +61,12 @@ class BatchedStreamingServer:
                  chunk_patches: int = 5, transfer_dtype: str = "float32",
                  mesh=None, timeline_cap: int = 0, device=None):
         """``transfer_dtype`` is the wire the buffers hold and the upload
-        carries: "float32", "int16" (PCM16, dequantized on the device) or
-        "uint8" (8-bit mu-law, expanded on the device)."""
+        carries: "float32", "int16" (PCM16, dequantized on the device),
+        "uint8" (8-bit mu-law, expanded on the device), "adpcm4" or "adpcm2"
+        (4- or 2-bit block ADPCM, decoded on the device)."""
         if cfg.model.variant not in STREAMING_VARIANTS:
             raise ValueError(f"unknown streaming variant {cfg.model.variant!r}; "
                              f"pick from {STREAMING_VARIANTS}")
-        if transfer_dtype in ("adpcm4", "adpcm2"):
-            raise NotImplementedError(
-                f"transfer_dtype={transfer_dtype!r} is not ported yet (ROADMAP.md queue A)")
         if transfer_dtype not in _WIRES:
             raise ValueError(
                 f"transfer_dtype must be float32|int16|uint8|adpcm4|adpcm2, got {transfer_dtype!r}")
@@ -81,6 +87,25 @@ class BatchedStreamingServer:
         self.hop_samples = (
             cfg.frontend.example_hop_frames * cfg.frontend.hop_length * chunk_patches
         )
+        self._adpcm = None
+        if transfer_dtype in ("adpcm4", "adpcm2"):
+            bits, blk = int(transfer_dtype[-1]), adpcm.SERVE_BLOCK
+            if self.chunk_samples % blk or self.hop_samples % blk:
+                raise ValueError(
+                    f"{transfer_dtype} needs chunk/hop sample counts divisible by {blk} "
+                    f"(chunk={self.chunk_samples}, hop={self.hop_samples}); use "
+                    "transfer_dtype='int16' for this front-end geometry")
+            wb = adpcm.wire_block_bytes(blk, bits)
+            enc = adpcm.adpcm4_encode if bits == 4 else adpcm.adpcm2_encode
+            self._adpcm = {
+                "block": blk, "wb": wb, "bits": bits, "encode": enc,
+                "chunk_wire": self.chunk_samples // blk * wb,
+                "hop_wire": self.hop_samples // blk * wb,
+                # 4-bit: a silence block decodes to exact zeros (7 >> 3 == 0);
+                # 2-bit: to +-3 LSB (7 >> 1 == 3), fed only to masked rows
+                "silence": enc(np.zeros(blk, np.int16), block=blk),
+            }
+            self._rem: List[np.ndarray] = [np.zeros(0, np.int16) for _ in range(self.S)]
         self._acts = stream_activations(cfg.model)
         self._bufs: List[Optional[np.ndarray]] = [None] * self.S
         self._fed = np.zeros(self.S, bool)
@@ -93,8 +118,12 @@ class BatchedStreamingServer:
         """wav [S, chunk_samples] in the wire dtype; active [S] bool - fold
         only these rows; n_valid [S] int - real patches per row (a flush pads
         the tail; padded patches get gate logits of -inf, which every gate
-        activation maps to 0)."""
-        if wav.dtype == torch.int16:
+        activation maps to 0). On the adpcm wires wav is [S, chunk_wire]
+        uint8 wire bytes."""
+        if self._adpcm is not None:
+            wav = adpcm_decode(wav, self.chunk_samples, self._adpcm["block"],
+                               self._adpcm["bits"])
+        elif wav.dtype == torch.int16:
             wav = wav.to(torch.float32) / 32768.0
         elif wav.dtype == torch.uint8:
             wav = mulaw_decode(wav)
@@ -143,6 +172,8 @@ class BatchedStreamingServer:
 
     @torch.inference_mode()
     def _reset_slot(self, sid: int):
+        if self._adpcm is not None:
+            self._rem[sid] = np.zeros(0, np.int16)
         # in place: one row of each accumulator back to the empty state
         for st in self.states:
             st.num[sid] = 0.0
@@ -170,31 +201,77 @@ class BatchedStreamingServer:
             return mulaw_encode(samples)
         return np.asarray(samples, np.float32)
 
-    def feed(self, sid: int, samples: np.ndarray):
-        """Append audio to a stream (float32, int16 or uint8 mu-law)."""
+    def _coerce_adpcm(self, sid: int, samples: np.ndarray,
+                      wire: Optional[bool]) -> np.ndarray:
+        """adpcm servers buffer wire bytes. uint8 input (or wire=True) is
+        pre-encoded wire, in whole block units; float32 / int16 is encoded
+        here, keeping the sub-block remainder per stream."""
+        a = self._adpcm
+        samples = np.asarray(samples)
+        if wire or (wire is None and samples.dtype == np.uint8):
+            if samples.dtype != np.uint8 or len(samples) % a["wb"]:
+                raise ValueError(f"{self.transfer_dtype} wire feed must be uint8 in whole "
+                                 f"{a['wb']}-byte block units")
+            if len(self._rem[sid]):
+                # wire blocks appended now would land before the remainder's audio
+                raise ValueError(
+                    f"stream {sid} holds {len(self._rem[sid])} not-yet-encoded samples "
+                    f"from a float/int16 feed; pad sample feeds to whole {a['block']}-sample "
+                    "blocks before switching to pre-encoded wire")
+            return samples
+        if samples.dtype == np.uint8:  # wire=False: mu-law codes, expanded first
+            samples = mulaw_decode(samples)
+        buf = np.concatenate([self._rem[sid], pcm16_quantize(samples)])
+        nb = len(buf) // a["block"]
+        self._rem[sid] = buf[nb * a["block"]:]
+        if nb == 0:
+            return np.zeros(0, np.uint8)
+        return a["encode"](buf[: nb * a["block"]], block=a["block"])
+
+    def feed(self, sid: int, samples: np.ndarray, wire: Optional[bool] = None):
+        """Append audio to a stream (float32, int16 or uint8 mu-law). On the
+        adpcm wires ``wire`` says what uint8 input is: True (or None) marks
+        pre-encoded wire bytes, False mu-law samples; other wires ignore it."""
         self._check(sid)
-        self._bufs[sid] = np.concatenate([self._bufs[sid], self._coerce(samples)])
+        new = (self._coerce_adpcm(sid, samples, wire) if self._adpcm is not None
+               else self._coerce(samples))
+        self._bufs[sid] = np.concatenate([self._bufs[sid], new])
 
     def pending(self, sid: int) -> int:
-        """Buffered audio in samples."""
+        """Buffered audio in samples (on the adpcm wires: the samples the
+        buffered wire blocks and the remainder stand for)."""
         self._check(sid)
+        if self._adpcm is not None:
+            a = self._adpcm
+            return len(self._bufs[sid]) // a["wb"] * a["block"] + len(self._rem[sid])
         return len(self._bufs[sid])
 
+    def _chunk_hop_units(self):
+        """(chunk, hop) in buffer units: samples, or wire bytes on the adpcm
+        wires (whole blocks, which decode alike when a chunk re-reads them)."""
+        if self._adpcm is not None:
+            return self._adpcm["chunk_wire"], self._adpcm["hop_wire"]
+        return self.chunk_samples, self.hop_samples
+
     def _blank_tile(self) -> np.ndarray:
-        """[S, chunk_samples] of silence in the wire dtype."""
+        """[S, chunk units] of silence in the wire format."""
+        if self._adpcm is not None:
+            a = self._adpcm
+            return np.tile(a["silence"], (self.S, a["chunk_wire"] // a["wb"]))
         return np.full((self.S, self.chunk_samples), self._pad_value, self._buf_dtype)
 
     def chunks_ready(self, sid: int) -> int:
         """How many tick()s the stream's buffer can supply now (0 if closed)."""
         b = self._bufs[sid] if 0 <= sid < self.S else None
-        if b is None or len(b) < self.chunk_samples:
+        cw, hw = self._chunk_hop_units()
+        if b is None or len(b) < cw:
             return 0
-        return (len(b) - self.chunk_samples) // self.hop_samples + 1
+        return (len(b) - cw) // hw + 1
 
     def gather_ready(self):
         """Slice one chunk from every ready stream and advance those
         buffers. Returns (wav, active) or None."""
-        cw, hw = self.chunk_samples, self.hop_samples
+        cw, hw = self._chunk_hop_units()
         active = np.array([b is not None and len(b) >= cw for b in self._bufs])
         if not active.any():
             return None
@@ -230,13 +307,20 @@ class BatchedStreamingServer:
         a stream too short for one patch is zero-padded to one. Returns True
         if a device step was run."""
         self._check(sid)
-        cw = self.chunk_samples
+        cw, _ = self._chunk_hop_units()
         while len(self._bufs[sid]) >= cw:  # never discard what a tick would fold
             self.tick()
         buf = self._bufs[sid]
-        if len(buf) == 0:
+        n_buffered = self.pending(sid)
+        if self._adpcm is not None and len(self._rem[sid]):
+            # the remainder becomes one last wire block, edge-padded by the
+            # encoder; the pad lands only in patches n_valid masks out
+            buf = np.concatenate([buf, self._adpcm["encode"](self._rem[sid],
+                                                             block=self._adpcm["block"])])
+            self._rem[sid] = np.zeros(0, np.int16)
+        if n_buffered == 0:
             return False
-        n_valid_sid = _whole_patches(self.cfg.frontend, len(buf))
+        n_valid_sid = _whole_patches(self.cfg.frontend, n_buffered)
         if n_valid_sid < 1:
             if self._fed[sid]:
                 self._bufs[sid] = np.zeros(0, self._buf_dtype)

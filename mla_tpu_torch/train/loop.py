@@ -2,14 +2,14 @@
 process on one device.
 
 Kept from the reference: the synthetic datasets; a training set staged once
-on the device in float32, int16 or uint8 wire form, with each batch gathered
+on the device in float32, int16, uint8 or adpcm4 wire form, with each batch gathered
 there by index (the host sends an index vector per step, not the batch); a
 device-resident eval set; balanced or seeded-random draws; the log, eval
 and checkpoint cadence; ``auto_resume`` with the sampler or RNG state; and
 graceful preemption by ``request_preemption`` or SIGTERM / SIGINT. Not
 ported yet, and raising ``NotImplementedError`` that names its ROADMAP.md
 item: the grain pipeline, model or data parallelism beyond the one card,
-adpcm4 staging, out-of-core / hdf5 data, TensorBoard.
+out-of-core / hdf5 data, TensorBoard.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 
 from mla_tpu_torch._device import resolve_device
 from mla_tpu_torch.config import Config
+from mla_tpu_torch.data.adpcm import adpcm4_encode, wire_length
 from mla_tpu_torch.data.audio_io import mulaw_encode, pcm16_quantize
 from mla_tpu_torch.data.ooc import take_rows
 from mla_tpu_torch.data.sampler import BalancedSampler, SequentialSampler
@@ -93,9 +94,6 @@ def _check_supported(cfg: Config) -> None:
     if d.staging_dtype not in ("float32", "int16", "uint8", "adpcm4"):
         raise ValueError(f"staging_dtype must be float32|int16|uint8|adpcm4,"
                          f" got {d.staging_dtype!r}")
-    if d.staging_dtype == "adpcm4":
-        raise NotImplementedError(
-            "staging_dtype='adpcm4' is not ported yet (ROADMAP.md queue A, item 2)")
 
 
 def _encode(x: np.ndarray, stage: str) -> np.ndarray:
@@ -104,6 +102,8 @@ def _encode(x: np.ndarray, stage: str) -> np.ndarray:
         return mulaw_encode(x)
     if stage == "int16":
         return pcm16_quantize(x)
+    if stage == "adpcm4":
+        return adpcm4_encode(pcm16_quantize(x))
     return np.asarray(x)
 
 
@@ -178,10 +178,14 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     sampler = (BalancedSampler(train_ds.y, bs, cfg.train.seed)
                if cfg.data.balanced_sampling else None)
     # device-resident training set: staged once in its wire form, each batch
-    # gathered on the device by index (and decoded inside the train step)
-    per_row = {"float32": 4, "int16": 2, "uint8": 1}[stage]
+    # gathered on the device by index (and decoded inside the train step).
+    # The wire form is sized from the shapes first, so a set too large for
+    # the budget is never encoded whole: it streams, encoded per batch.
     if input_kind == "waveform":
-        data_bytes = per_row * int(train_ds.x.size) + int(train_ds.y.nbytes)
+        n_clip = int(train_ds.x.shape[1])
+        per_row = {"float32": 4 * n_clip, "int16": 2 * n_clip, "uint8": n_clip,
+                   "adpcm4": wire_length(n_clip)}[stage]
+        data_bytes = per_row * int(train_ds.x.shape[0]) + int(train_ds.y.nbytes)
     else:
         data_bytes = int(train_ds.x.nbytes) + int(train_ds.y.nbytes)
     use_device_data = cfg.data.device_resident and data_bytes <= cfg.data.device_resident_max_bytes

@@ -25,9 +25,11 @@ import numpy as np
 import torch
 
 from mla_tpu_torch.config import Config
+from mla_tpu_torch.data.adpcm import DEFAULT_BLOCK
 from mla_tpu_torch.data.audio_io import mulaw_decode
 from mla_tpu_torch.models.zoo import AudioTagger
 from mla_tpu_torch.ops import frontend as fe
+from mla_tpu_torch.ops.adpcm import adpcm_decode
 
 _EPS = 1e-7
 ADAM_BETAS = (0.9, 0.999)
@@ -117,7 +119,8 @@ def decode_staged(x: torch.Tensor, stage: str,
                   clip_samples: Optional[int] = None) -> torch.Tensor:
     """Device-side decode of a staged waveform batch (DataConfig.staging_dtype
     wire form) -> float32 [-1, 1]. A float32 input passes through whatever
-    ``stage`` says: floats are never wire form."""
+    ``stage`` says: floats are never wire form. ``clip_samples`` cuts the
+    adpcm4 block padding (None: keep every decoded sample)."""
     if x.dtype == torch.float32:
         return x
     if stage == "int16":
@@ -125,8 +128,7 @@ def decode_staged(x: torch.Tensor, stage: str,
     if stage == "uint8":
         return mulaw_decode(x)
     if stage == "adpcm4":
-        raise NotImplementedError(
-            "staging_dtype='adpcm4' is not ported yet (ROADMAP.md queue A, item 2)")
+        return adpcm_decode(x, clip_samples, DEFAULT_BLOCK, bits=4)
     return x
 
 

@@ -108,7 +108,7 @@ def test_resumed_run_equals_uninterrupted(tmp_path, balanced):
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("stage", ["float32", "int16", "uint8"])
+@pytest.mark.parametrize("stage", ["float32", "int16", "uint8", "adpcm4"])
 def test_device_resident_matches_host_feed(tmp_path, stage):
     """The training set staged once in its wire form with a gather by index
     gives the same trajectory as batches encoded and uploaded per step."""
@@ -186,7 +186,7 @@ def test_checkpoint_manager_keeps_the_last_n(tmp_path):
     ({"data.pipeline": "grain"}, "grain"),
     ({"train.model_parallel": 2}, "ROADMAP.md queue A, item 9"),
     ({"train.data_parallel": 2}, "one card"),
-    ({"data.staging_dtype": "adpcm4"}, "adpcm4"),
+    ({"data.dataset": "synthetic_events"}, "synthetic_events"),
     ({"train.tensorboard": True}, "TensorBoard"),
     ({"data.dataset": "hdf5"}, "hdf5"),
 ])

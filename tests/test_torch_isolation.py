@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every ``mla_tpu_torch`` module
-loads no JAX, flax, optax or ``mla_tpu`` module, and ``chip_smoke.py``
-imports none of them either."""
+loads no JAX, flax, optax or ``mla_tpu`` module, and ``chip_smoke.py`` and
+``bench_torch.py`` import none of them either."""
 
 import sys
 
@@ -46,7 +46,7 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "mla_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "bench_torch.py", "mla_tpu_torch"])
 def test_sources_name_no_forbidden_import(path):
     full = os.path.join(ROOT, path)
     files = [full] if full.endswith(".py") else [

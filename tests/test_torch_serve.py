@@ -1,5 +1,6 @@
 """Serving slice of the PyTorch port: BatchedStreamingServer against the
-JAX server on identical bytes (fused front-end, f32 compute, same weights),
+JAX server on identical bytes (fused front-end, f32 compute, same weights)
+on every wire, the adpcm wires' pre-encoded feeds and remainders included,
 StreamingTagger against tag_clip, and the device rule of the entry points."""
 
 import sys
@@ -13,7 +14,8 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from mla_tpu.serve.server import BatchedStreamingServer as JaxServer  # noqa: E402
-from mla_tpu_torch.data import audio_io  # noqa: E402
+from mla_tpu_torch.data import adpcm, audio_io  # noqa: E402
+from mla_tpu_torch.ops import adpcm as adpcm_ops  # noqa: E402
 from mla_tpu_torch.serve.server import BatchedStreamingServer  # noqa: E402
 from mla_tpu_torch.serve.streaming import (  # noqa: E402
     StreamingTagger,
@@ -58,7 +60,7 @@ def _session(srv, audio):
     return np.stack(out)
 
 
-@pytest.mark.parametrize("wire", ["float32", "int16", "uint8"])
+@pytest.mark.parametrize("wire", ["float32", "int16", "uint8", "adpcm4", "adpcm2"])
 def test_server_matches_jax_server(setup, wire):
     jcfg, tcfg, variables, state_dict = setup
     audio = (np.random.default_rng(7).standard_normal(16000 * 20) * 0.1).astype(np.float32)
@@ -97,14 +99,68 @@ def test_server_bookkeeping(setup):
 @pytest.mark.parametrize("kwargs,err", [
     ({"timeline_cap": 8}, NotImplementedError),
     ({"mesh": object()}, NotImplementedError),
-    ({"transfer_dtype": "adpcm4"}, NotImplementedError),
-    ({"transfer_dtype": "adpcm2"}, NotImplementedError),
     ({"transfer_dtype": "bfloat16"}, ValueError),
 ])
 def test_server_rejects_unported_options(setup, kwargs, err):
     _, tcfg, _, state_dict = setup
     with pytest.raises(err):
         BatchedStreamingServer(tcfg, state_dict, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("wire", ["adpcm4", "adpcm2"])
+def test_adpcm_server_wire_feeds_match_jax_server(setup, wire):
+    """Pre-encoded wire feeds (wire=True, and uint8 taken as wire), a
+    sample feed that leaves a sub-block remainder, its flush, and the
+    server's units: pending in samples, chunks_ready in wire units."""
+    jcfg, tcfg, variables, state_dict = setup
+    bits = int(wire[-1])
+    enc = adpcm.adpcm4_encode if bits == 4 else adpcm.adpcm2_encode
+    audio = (np.random.default_rng(11).standard_normal(16000 * 12) * 0.1).astype(np.float32)
+    blk, wb = adpcm.SERVE_BLOCK, adpcm.wire_block_bytes(adpcm.SERVE_BLOCK, bits)
+    coded = enc(audio, block=blk)
+    tail = audio[1100 * blk:1100 * blk + 16000 + 37]  # 16037 samples: a remainder of 37
+
+    def run_feeds(srv):
+        a, b = srv.open(), srv.open()
+        srv.feed(a, coded[:500 * wb], wire=True)
+        srv.feed(a, coded[500 * wb:1100 * wb])  # uint8: wire by default
+        assert srv.pending(a) == 1100 * blk
+        ready = srv.chunks_ready(a)
+        srv.feed(b, tail)
+        assert srv.pending(b) == len(tail)
+        with pytest.raises(ValueError, match="not-yet-encoded"):
+            srv.feed(b, coded[:wb], wire=True)
+        with pytest.raises(ValueError, match="whole"):
+            srv.feed(a, coded[:wb - 1])
+        srv.drain()
+        out = [srv.scores(a)]
+        srv.flush(a)
+        srv.flush(b)
+        assert srv.pending(b) == 0
+        return ready, np.stack(out + [srv.scores(a), srv.scores(b)])
+
+    launches = adpcm_ops.LAUNCHES
+    ready, ours = run_feeds(BatchedStreamingServer(tcfg, state_dict, max_streams=2,
+                                                 chunk_patches=2, transfer_dtype=wire,
+                                                 device="cpu"))
+    assert adpcm_ops.LAUNCHES == launches  # the CPU takes the plain decode
+    ref_ready, ref = run_feeds(JaxServer(jcfg, variables, max_streams=2, chunk_patches=2,
+                                       transfer_dtype=wire))
+    assert ready == ref_ready > 1
+    np.testing.assert_allclose(ours, ref, atol=SCORE_TOL, rtol=0)
+
+
+def test_adpcm_server_needs_whole_block_chunks(setup):
+    """At 22.05 kHz the hop is 220 samples, so chunks are not whole 64-sample
+    blocks: the adpcm wires are refused, as the reference refuses them."""
+    _, tcfg, _, state_dict = setup
+    cfg = dataclasses.replace(tcfg, frontend=dataclasses.replace(tcfg.frontend,
+                                                                 sample_rate=22050))
+    for wire in ("adpcm4", "adpcm2"):
+        with pytest.raises(ValueError, match="divisible by 64"):
+            BatchedStreamingServer(cfg, state_dict, transfer_dtype=wire, device="cpu")
+    srv = BatchedStreamingServer(cfg, state_dict, transfer_dtype="int16", device="cpu")
+    assert srv.chunk_samples % 64
 
 
 def test_streaming_tagger_matches_tag_clip(setup):

@@ -23,6 +23,8 @@ from mla_tpu.models.trunk import CompactCNN as JaxCompactCNN  # noqa: E402
 from mla_tpu.models.zoo import build_model as jax_build_model  # noqa: E402
 from mla_tpu.train import state as jstate  # noqa: E402
 from mla_tpu_torch.config import get_config  # noqa: E402
+from mla_tpu_torch.data.adpcm import adpcm4_encode  # noqa: E402
+from mla_tpu_torch.data.audio_io import pcm16_quantize  # noqa: E402
 from mla_tpu_torch.models.convert import flat_to_state_dict, state_dict_to_flat  # noqa: E402
 from mla_tpu_torch.models.heads import EmbeddedMapping, dropout  # noqa: E402
 from mla_tpu_torch.models.trunk import CompactCNN  # noqa: E402
@@ -110,13 +112,17 @@ def test_decode_staged_matches_reference():
     x = rng.integers(-32768, 32767, (3, 50)).astype(np.int16)
     q = rng.integers(0, 256, (3, 50)).astype(np.uint8)
     f = rng.standard_normal((3, 50)).astype(np.float32)
-    for arr, stage in ((x, "int16"), (q, "uint8"), (f, "int16")):
-        ref = np.asarray(jstate.decode_staged(jnp.asarray(arr), stage))
-        ours = tstate.decode_staged(torch.from_numpy(arr), stage).numpy()
-        assert ours.dtype == np.float32
+    wire = adpcm4_encode(x)  # 50 samples: one 256-sample block, edge-padded
+    for arr, stage, n in ((x, "int16", None), (q, "uint8", None), (f, "int16", None),
+                          (wire, "adpcm4", 50), (wire, "adpcm4", None), (f, "adpcm4", None)):
+        ref = np.asarray(jstate.decode_staged(jnp.asarray(arr), stage, n))
+        ours = tstate.decode_staged(torch.from_numpy(arr), stage, n).numpy()
+        assert ours.dtype == np.float32 and ours.shape == ref.shape
         np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstate.decode_staged(torch.from_numpy(x), "adpcm4")
+    # adpcm4 is exact: the decode reproduces the encoder's reconstruction
+    np.testing.assert_array_equal(
+        tstate.decode_staged(torch.from_numpy(wire), "adpcm4", 50).numpy(),
+        np.asarray(jstate.decode_staged(jnp.asarray(wire), "adpcm4", 50)))
 
 
 def test_dropout_rate_scale_and_generator():
@@ -188,6 +194,8 @@ STEP_CASES = {
                       "train.warmup_steps": 3, "train.num_steps": N_STEPS},
     "clip": {"frontend.impl": "xla", "train.gradient_clip_norm": 0.05},
     "ema": {"frontend.impl": "xla", "train.ema_decay": 0.9},
+    # batches staged in the adpcm4 wire, decoded inside the step
+    "adpcm4": {"frontend.impl": "xla", "data.staging_dtype": "adpcm4"},
 }
 # gradients: f32 sums in another order, so within 2e-4 of the tensor's
 # largest gradient, plus 1e-7 for the attention gate, whose gradient
@@ -249,6 +257,8 @@ def test_train_steps_match_jax_from_bridged_weights(case):
     rng = np.random.default_rng(4)
     xs = (0.1 * rng.standard_normal((N_STEPS, B, N_SAMPLES))).astype(np.float32)
     ys = (rng.random((N_STEPS, B, 8)) < 0.3).astype(np.float32)
+    if tcfg.data.staging_dtype == "adpcm4":  # both steps get the same wire bytes
+        xs = adpcm4_encode(pcm16_quantize(xs))
     ref_losses, losses = [], []
     for i in range(N_STEPS):
         jst, jl = jstep(jst, jnp.asarray(xs[i]), jnp.asarray(ys[i]))
