@@ -18,9 +18,12 @@ printing its last line:
      up to [16384, 4096], an odd [33, 7], and a view that starts one float
      into its buffer), each case launching the row-merge variant
      (row_merge_bulk or row_merge_generic) that row_merge_variant names;
-     the ADPCM decode kernel bit-exact against its plain version, the
-     golden wires (tests/golden/adpcm_wire.npz, adpcm2_wire.npz) and the
-     host decoder, both bit widths, at the serving and training shapes;
+     the ADPCM decode kernel, both variants (scan, the warp-parallel scan
+     the wrapper picks for 4-bit codes in blocks of 256, and serial, one
+     lane per block, which it picks for the rest), bit-exact against
+     its plain version, the golden wires (tests/golden/adpcm_wire.npz,
+     adpcm2_wire.npz), the host decoder and a random-bytes wire, both bit
+     widths, at the serving and training shapes;
   4. the probe entry point (python -m mla_tpu_torch.probe_row_merge): its
      verdict must be "supported", through scale2 and row_merge_bulk;
   5. the serving path at full width: BatchedStreamingServer on the
@@ -30,16 +33,18 @@ printing its last line:
      the front-end kernel must run once per device step, every launch on
      the mma variant, and the scores must agree with the same server on the
      torch-ops front-end; then the same on the adpcm4 wire (and, shorter,
-     adpcm2): one decode launch per device step, and the scores held
-     against the float32-wire server fed the codec's round trip;
+     adpcm2): one decode launch per device step, every one on the variant
+     decode_variant picks for the wire (serial at block 64), and the scores held against the float32-wire server fed the
+     codec's round trip;
   6. the training path at full width: fit() on the us8k_fused_frontend
      preset as shipped (front-end kernel at "highest", batch 64 of 4 s
      clips), cut only in num_steps / eval_every / checkpoint_every; finite
      losses, one front-end launch per train step and per eval batch, every
      launch on the mma variant, resume() restoring exactly the trained weights, and the first step's
      loss on the kernel against the torch-ops front-end; then a short fit()
-     with data.staging_dtype=adpcm4 (one decode launch per train step) and
-     its first step against float32 staging of the decoded clips;
+     with data.staging_dtype=adpcm4 (one decode launch per train step, on
+     the scan variant that block 256 picks) and its first step against float32 staging of the
+     decoded clips;
   6b. the flagship program (mla_tpu_torch/entry.py, audioset_full_dp as
      shipped): entry()'s 4 x 10 s forward, finite [4, 527] probs, the
      fidelity record max |probs("default") - probs("highest")| with TF32
@@ -54,10 +59,12 @@ printing its last line:
      kernels on inputs that are not in the L2 cache, at every case but
      [33, 7], with row_merge_generic also timed at the aligned shapes,
      where the wrapper takes row_merge_bulk; the ADPCM decode per width at
-     the serving and training shapes on L2-cold wires; the mma front-end
-     at the flagship's [128, 160000]); one server tick (int16 and
-     adpcm4) and one train step on the host clock; each kernel's bound;
-     and torch.profiler breakdowns of ten ticks and five train steps.
+     the serving and training shapes on L2-cold wires and on a wire in the
+     L2 cache, both variants, and each variant on one 64-sample unit, its
+     launch floor; the mma front-end at the flagship's
+     [128, 160000]); one server tick (int16 and adpcm4) and one train step
+     on the host clock; each kernel's bound; and torch.profiler breakdowns
+     of ten ticks on each of the two wires and five train steps.
 Launch counts are set to 0 just before each path (probe, serving on each
 wire, training, adpcm4-staged training, the flagship forward and train
 steps) is driven and read just after. The script prints the card's line
@@ -100,6 +107,7 @@ BF16_SCORE_BUDGET = 2e-2  # scores, pallas vs torch-ops front-end under bf16 com
 BF16_LOSS_BUDGET = 1e-3
 MAIN_PRECISION = "default"  # the streaming_inference preset's front-end precision
 VARIANTS = ("mma", "simt")  # the front-end kernel's; the main path takes mma
+DECODE_VARIANTS = ("scan", "serial")  # the ADPCM decode's; decode_variant picks per wire
 # (shape, rows, offset in floats of x into its buffer, the row-merge variant
 # it must take); the first is the probe's own
 PROBE_CASES = (((960, 160), 3, 0, "bulk"), ((4096, 1024), 4, 0, "bulk"),
@@ -122,11 +130,12 @@ ADPCM_LOSS_BUDGET = 1e-4
 ADPCM_SITES = (("serve [8, 77120]", (8, 77120), 64), ("train [64, 64000]", (64, 64000), 256))
 FLAGSHIP_BATCH = 128  # bench.py's batch of 10 s clips
 FLAGSHIP_STEPS = 3  # train steps per front-end impl before the timed ones
-# (substring of the CUDA symbol, kernel): the port's own kernels are launched
-# through ctypes, outside any operator, so the profiler is read by name
+# (substring of the CUDA symbol, kernel), the first match counting: the
+# port's own kernels are launched through ctypes, outside any operator, so
+# the profiler is read by name
 PORT_KERNELS = (("fused_log_mel", "fused_log_mel_patches"), ("scale2_kernel", "scale2"),
                 ("row_merge_bulk", "row_merge"), ("row_merge_generic", "row_merge"),
-                ("adpcm_decode", "adpcm_decode"))
+                ("adpcm_decode_scan", "adpcm_decode scan"), ("adpcm_decode", "adpcm_decode serial"))
 
 
 def _probe_key(shape, rows, offset) -> str:
@@ -178,6 +187,7 @@ def _profile(fn, n: int):
         for symbol, kernel in PORT_KERNELS:
             if symbol in ev.name:
                 ops.append((f"kernel {kernel}", ev.time_range.elapsed_us()))
+                break
     totals = {}
     for k, v in ops:
         totals[k] = totals.get(k, 0.0) + v
@@ -405,29 +415,33 @@ def main() -> int:
         del x, got, want
     record["probe_max_abs_err"] = probe_errs
 
-    # the ADPCM decode: bit-exact against the golden wires, its plain version
-    # on the card and the host decoder, per width at both sites
+    # the ADPCM decode, both variants: bit-exact against the golden wires,
+    # its plain version on the card and the host decoder, per width at both
+    # sites, and on a wire of random bytes
     codecs = {4: (adpcm.adpcm4_encode, adpcm.adpcm4_decode, "adpcm_wire.npz"),
               2: (adpcm.adpcm2_encode, adpcm.adpcm2_decode, "adpcm2_wire.npz")}
     prng = np.random.default_rng(SEED)
     adpcm_wires = {}  # (bits, site label) -> the wire on the card, for the timing
-    adpcm_errs = {}  # case -> max |kernel - plain version| (0.0: bit-exact)
+    # adpcm_errs[variant][case]: max |kernel - plain version| (0.0: bit-exact)
+    adpcm_errs = {v: {} for v in DECODE_VARIANTS}
 
     def check_decode(what, wire, n, block, bits, want):
-        before = ad.LAUNCHES
-        got = ad.adpcm_decode(wire, n, block, bits)
-        torch.cuda.synchronize()
-        if ad.LAUNCHES != before + 1:
-            raise RuntimeError(f"adpcm_decode {what}: the kernel did not launch")
         plain = ad.adpcm_decode_reference(wire, n, block, bits)
-        if got.shape == plain.shape:
-            adpcm_errs[what] = float((got - plain).abs().max())
-        for against, w in (("its plain version", plain), ("the reference", want)):
-            if got.shape != w.shape or not torch.equal(got, w):
-                err = float((got - w).abs().max()) if got.shape == w.shape else None
-                raise RuntimeError(f"adpcm_decode {what} is not bit-exact against {against} "
-                                   f"(shape {tuple(got.shape)}, max |diff| {err})")
-        print(f"kernel vs plain, adpcm_decode {what}: bit-exact (and against the reference)")
+        for variant in DECODE_VARIANTS:
+            before = dict(ad.LAUNCHES_BY_VARIANT)
+            got = ad.adpcm_decode(wire, n, block, bits, _variant=variant)
+            torch.cuda.synchronize()
+            if ad.LAUNCHES_BY_VARIANT != {**before, variant: before[variant] + 1}:
+                raise RuntimeError(f"adpcm_decode {what}: the {variant} variant did not launch")
+            if got.shape == plain.shape:
+                adpcm_errs[variant][what] = float((got - plain).abs().max())
+            for against, w in (("its plain version", plain), ("the reference", want)):
+                if got.shape != w.shape or not torch.equal(got, w):
+                    err = float((got - w).abs().max()) if got.shape == w.shape else None
+                    raise RuntimeError(f"adpcm_decode {variant} {what} is not bit-exact against "
+                                       f"{against} (shape {tuple(got.shape)}, max |diff| {err})")
+            print(f"kernel vs plain, adpcm_decode {variant} {what}: bit-exact (and against the "
+                  f"reference)")
 
     for bits, (enc, dec, golden_file) in codecs.items():
         g = np.load(os.path.join(ROOT, "tests", "golden", golden_file))
@@ -441,6 +455,14 @@ def main() -> int:
             check_decode(f"{bits}-bit {label} block {blk}", wire, shape[1], blk, bits,
                          torch.from_numpy(dec(wire_h, n=shape[1], block=blk)).cuda())
             adpcm_wires[bits, label] = wire
+        # random bytes: header indices past 88 (which the host decoder does
+        # not take) and predictors at the int16 edges, which encoded audio
+        # never carries; the reference is the plain version on the CPU, which
+        # the CPU tests hold against the JAX decoders on such wires
+        junk = torch.from_numpy(
+            prng.integers(0, 256, (8, adpcm.wire_length(77120, 64, bits))).astype(np.uint8))
+        check_decode(f"{bits}-bit random bytes [8, 77120] block 64", junk.cuda(), 77120, 64, bits,
+                     ad.adpcm_decode_reference(junk, 77120, 64, bits).cuda())
     record["adpcm_max_abs_err"] = adpcm_errs
 
     # 4. the probe entry point
@@ -525,16 +547,23 @@ def main() -> int:
                                       transfer_dtype=wire_name)
         wsrv.warmup()
         ad.LAUNCHES = ff.LAUNCHES = 0
+        ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
         ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
         d0 = wsrv.dispatches
         wscores = _drive(wsrv, wstreams, wschedule)
         torch.cuda.synchronize()
         steps, dec_launches = wsrv.dispatches - d0, ad.LAUNCHES
+        dec_by_variant = dict(ad.LAUNCHES_BY_VARIANT)
         fe_by_variant = dict(ff.LAUNCHES_BY_VARIANT)
         print(f"serving path, {wire_name} wire: {steps} device steps, adpcm_decode launches "
-              f"{dec_launches}, fused_log_mel_patches launches {ff.LAUNCHES} {fe_by_variant}")
+              f"{dec_launches} {dec_by_variant}, fused_log_mel_patches launches {ff.LAUNCHES} "
+              f"{fe_by_variant}")
         if dec_launches != steps or steps < 1:
             raise RuntimeError(f"{wire_name}: decode launches {dec_launches} != device steps {steps}")
+        picked = ad.decode_variant(bits, adpcm.SERVE_BLOCK)
+        if dec_by_variant != {**dict.fromkeys(DECODE_VARIANTS, 0), picked: steps}:
+            raise RuntimeError(f"{wire_name}: decode launches {dec_by_variant} != {steps} on "
+                               f"{picked}")
         if fe_by_variant != {"mma": steps, "simt": 0}:
             raise RuntimeError(f"{wire_name}: front-end launches {fe_by_variant} != {steps} on mma")
         if not np.isfinite(wscores).all() or wscores.min() < 0 or wscores.max() > 1:
@@ -553,6 +582,7 @@ def main() -> int:
         if werr > ADPCM_SCORE_BUDGET:
             raise RuntimeError(f"{wire_name} server disagrees with the float32 server: {werr}")
         adpcm_serve[wire_name] = {"device_steps": steps, "decode_launches": dec_launches,
+                                  "decode_launches_by_variant": dec_by_variant,
                                   "frontend_launches": fe_by_variant["mma"],
                                   "score_err_vs_round_trip": werr, "streams": len(wstreams)}
         if wire_name == "adpcm4":
@@ -627,16 +657,31 @@ def main() -> int:
     ws_a = os.path.join(ROOT, "build", "chip_smoke_train_adpcm4")
     shutil.rmtree(ws_a, ignore_errors=True)
     ad.LAUNCHES = ff.LAUNCHES = 0
+    ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
     ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     ares = loop.fit(acfg, workspace=ws_a)
     torch.cuda.synchronize()
     acounts, a_decode, a_fe = dict(ares.counts), ad.LAUNCHES, dict(ff.LAUNCHES_BY_VARIANT)
+    a_dec_by_variant = dict(ad.LAUNCHES_BY_VARIANT)
     alosses = [h["loss"] for h in ares.history]
     print(f"adpcm4-staged training: {acounts['train_steps']} train steps + "
-          f"{acounts['eval_batches']} eval batches, adpcm_decode launches {a_decode}, "
-          f"fused_log_mel_patches launches {a_fe}; losses {alosses}")
+          f"{acounts['eval_batches']} eval batches, adpcm_decode launches {a_decode} "
+          f"{a_dec_by_variant}, fused_log_mel_patches launches {a_fe}; losses {alosses}")
     if a_decode != acounts["train_steps"] or acounts["train_steps"] != acfg.train.num_steps:
         raise RuntimeError(f"adpcm4 staging: decode launches {a_decode} != train steps {acounts}")
+    picked = ad.decode_variant(4, adpcm.DEFAULT_BLOCK)
+    if a_dec_by_variant != {**dict.fromkeys(DECODE_VARIANTS, 0), picked: a_decode}:
+        raise RuntimeError(f"adpcm4 staging: decode launches {a_dec_by_variant} not all on "
+                           f"{picked}")
+    # each decode variant is some main-path site's pick
+    dec_by_path = {"serve_adpcm4": adpcm_serve["adpcm4"]["decode_launches_by_variant"],
+                   "serve_adpcm2": adpcm_serve["adpcm2"]["decode_launches_by_variant"],
+                   "train_adpcm4": a_dec_by_variant}
+    dec_launches_by_variant = {v: sum(p[v] for p in dec_by_path.values())
+                               for v in DECODE_VARIANTS}
+    print(f"adpcm_decode launches on the main path by variant: {dec_launches_by_variant}")
+    if min(dec_launches_by_variant.values()) < 1:
+        raise RuntimeError(f"a decode variant never ran on the main path: {dec_by_path}")
     if a_fe != {"mma": acounts["train_steps"] + acounts["eval_batches"], "simt": 0}:
         raise RuntimeError(f"adpcm4 staging: front-end launches {a_fe} for {acounts}")
     if not alosses or not np.isfinite(alosses).all():
@@ -660,6 +705,7 @@ def main() -> int:
     if stage_err > ADPCM_LOSS_BUDGET:
         raise RuntimeError(f"adpcm4 vs float32 staging, first-step loss: {stage_err}")
     record["adpcm4_training"] = {"counts": acounts, "decode_launches": a_decode,
+                                 "decode_launches_by_variant": a_dec_by_variant,
                                  "frontend_launches": a_fe, "losses": alosses,
                                  "first_step_loss": stage_loss, "first_step_loss_err": stage_err}
 
@@ -848,26 +894,60 @@ def main() -> int:
     record.update(probe_ms=probe_ms)
 
     # the ADPCM decode per width at both sites, on wires that are not in the
-    # L2 cache, beside its plain version; its bound is bytes (every wire
-    # byte read once, every f32 sample written once)
+    # L2 cache: both variants in turns (scan, serial, serial, scan; each
+    # variant's time the mean of its two), and the plain version; its bound
+    # is bytes (every wire byte read once, every f32 sample written once)
     adpcm_ms = {}
     for (bits, label), wire in adpcm_wires.items():
         _, (_, n_site), blk = next(site for site in ADPCM_SITES if site[0] == label)
         nxt, n_copies = l2_cold(wire)
         nbytes = ad.decode_bytes_moved(wire, n_site)
-        t = {"ms": device_median_ms(lambda: ad.adpcm_decode(nxt(), n_site, blk, bits), inner=20),
+
+        def decode(variant):
+            return device_median_ms(lambda: ad.adpcm_decode(nxt(), n_site, blk, bits,
+                                                            _variant=variant), inner=20)
+
+        turns = [(v, decode(v)) for v in ("scan", "serial", "serial", "scan")]
+        by_variant = {v: statistics.mean(ms for w, ms in turns if w == v) for v in DECODE_VARIANTS}
+        # one wire for every launch: it stays in the L2 cache, as a wire just
+        # uploaded (the server's) or just gathered (training's) is
+        warm = {v: device_median_ms(lambda v=v: ad.adpcm_decode(wire, n_site, blk, bits,
+                                                                _variant=v), inner=20)
+                for v in DECODE_VARIANTS}
+        picked = ad.decode_variant(bits, blk)
+        t = {"variant": picked, "ms": by_variant[picked], "scan_ms": by_variant["scan"],
+             "serial_ms": by_variant["serial"], "turns_ms": turns, "warm_ms": warm,
              "plain_ms": device_median_ms(
                  lambda: ad.adpcm_decode_reference(nxt(), n_site, blk, bits),
                  reps=5, inner=2, warmup=1),
              "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes, "input_copies": n_copies,
              "shape": list(wire.shape), "block": blk}
         adpcm_ms[f"{bits}-bit {label}"] = t
-        print(f"time: adpcm_decode {bits}-bit {label} block {blk}: kernel {t['ms'] * 1e3:.3f} us, "
-              f"plain version {t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us "
-              f"({nbytes / 1e6:.4f} MB at {PEAK_BYTES / 1e12:g} TB/s, bytes); "
-              f"{t['bound_ms'] / t['ms']:.4f} of bound {tag}")
+        faster = min(DECODE_VARIANTS, key=by_variant.get)
+        print(f"time: adpcm_decode {bits}-bit {label} block {blk}: scan {t['scan_ms'] * 1e3:.3f} "
+              f"us, serial {t['serial_ms'] * 1e3:.3f} us (turns "
+              f"{', '.join(f'{v} {ms * 1e3:.3f}' for v, ms in turns)}), plain version "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us ({nbytes / 1e6:.4f} MB "
+              f"at {PEAK_BYTES / 1e12:g} TB/s, bytes); of bound: scan "
+              f"{t['bound_ms'] / t['scan_ms']:.4f}, serial {t['bound_ms'] / t['serial_ms']:.4f}; "
+              f"on a wire in the L2 cache: scan {warm['scan'] * 1e3:.3f} us, serial "
+              f"{warm['serial'] * 1e3:.3f} us; the wrapper picks {picked}, {faster} was faster "
+              f"L2-cold, {min(DECODE_VARIANTS, key=warm.get)} L2-warm {tag}")
         del nxt
-    record["adpcm_ms"] = adpcm_ms
+    # the launch floor: each variant on one 64-sample unit, the same
+    # protocol (the 35- or 19-byte wire stays in the L2 cache; rotating
+    # copies of it would take millions)
+    adpcm_floor_ms = {}
+    for bits, (enc, _, _) in codecs.items():
+        one = torch.from_numpy(enc(pcm16_quantize(0.3 * prng.standard_normal(64)), block=64)).cuda()
+        serving = adpcm_ms[f"{bits}-bit {ADPCM_SITES[0][0]}"]
+        for v in DECODE_VARIANTS:
+            adpcm_floor_ms[f"{v} {bits}-bit"] = floor = device_median_ms(
+                lambda v=v: ad.adpcm_decode(one, 64, 64, bits, _variant=v), inner=20)
+            print(f"time: adpcm_decode {v}, one 64-sample unit ({one.numel()} bytes), {bits}-bit: "
+                  f"{floor * 1e3:.3f} us, the launch floor; the serving site reads "
+                  f"{serving[f'{v}_ms'] / floor:.4f} x it {tag}")
+    record.update(adpcm_ms=adpcm_ms, adpcm_floor_ms=adpcm_floor_ms)
 
     # the mma front-end at the flagship's site (bench.py's batch, "default")
     fw = (torch.randn((FLAGSHIP_BATCH, 10 * sr), generator=gen) * 0.1).cuda()
@@ -903,10 +983,18 @@ def main() -> int:
     tick_prof = _report_profile("tick", n_prof, tick_med, _profile(srv.tick, n_prof), tag)
     for _ in range(8):
         asrv.feed(asrv.open(), tick_audio)
-    ad.LAUNCHES = 0
+    ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
     atick_med = _host_median_ms(asrv.tick)
     print(f"time: server tick, 8 adpcm4 streams x 5 patches, host clock: {atick_med:.4f} ms; "
-          f"{ad.LAUNCHES} decode launches in {REPS + 3} ticks {tag}")
+          f"decode launches in {REPS + 3} ticks {dict(ad.LAUNCHES_BY_VARIANT)} {tag}")
+    atick_prof = _report_profile("adpcm4 tick", n_prof, atick_med, _profile(asrv.tick, n_prof),
+                                 tag)
+    atick_decode_ms = dict(atick_prof["top_ms"]).get(
+        f"kernel adpcm_decode {ad.decode_variant(4, adpcm.SERVE_BLOCK)}")
+    print(f"adpcm4 tick against the int16 tick: device busy {atick_prof['device_busy_ms']} "
+          f"against {tick_prof['device_busy_ms']} ms, idle share {atick_prof['idle_share']} "
+          f"against {tick_prof['idle_share']}; the decode kernel {atick_decode_ms} device ms per "
+          f"tick {tag}")
 
     # one train step at full width, host clock, and its profile
     state = result.state
@@ -930,7 +1018,8 @@ def main() -> int:
                   train_frontend={"ms": train_kernel_ms, "plain_ms": train_plain_ms,
                                   "precision": tprec, "shape": list(w64.shape), **tbound},
                   frontend_launches={"serve": serve_by_variant, "train": train_by_variant},
-                  peak_memory_gb=peak_gb, adpcm4_tick_ms=atick_med)
+                  peak_memory_gb=peak_gb, adpcm4_tick_ms=atick_med,
+                  adpcm4_tick_profile=atick_prof)
 
     main_probe = _probe_key(*PROBE_CASES[0][:3])
     # the front-end kernel's launches on every path that takes it
@@ -980,34 +1069,40 @@ def main() -> int:
         "tick_ms": tick_med,
         "train_step_ms": step_med,
     }]
-    main_adpcm = adpcm_ms["4-bit serve [8, 77120]"]
-    kernels.append({
-        "name": "adpcm_decode",
-        "route": "cuda",
-        "source": "mla_tpu_torch/csrc/adpcm.cu",
-        "replaces": "mla_tpu/data/adpcm.py:435",
-        "replaces_note": "_decode_jnp (4-bit) and _decode2_jnp (:379, 2-bit), a lax.scan, "
-                         "not a pallas_call: a port-only kernel",
-        "launches": (adpcm_serve["adpcm4"]["decode_launches"]
-                     + adpcm_serve["adpcm2"]["decode_launches"] + a_decode),
-        "launches_by_path": {"serve_adpcm4": adpcm_serve["adpcm4"]["decode_launches"],
-                             "serve_adpcm2": adpcm_serve["adpcm2"]["decode_launches"],
-                             "train_adpcm4": a_decode},
-        "max_abs_err": max(adpcm_errs.values()),
-        "max_abs_err_by_case": adpcm_errs,
-        "ms": main_adpcm["ms"],
-        "plain_ms": main_adpcm["plain_ms"],
-        "bound_ms": main_adpcm["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "library_note": "no PyTorch call decodes IMA ADPCM",
-        "shape": main_adpcm["shape"],
-        "block": main_adpcm["block"],
-        "ms_by_case": {k: v["ms"] for k, v in adpcm_ms.items()},
-        "plain_ms_by_case": {k: v["plain_ms"] for k, v in adpcm_ms.items()},
-        "bound_ms_by_case": {k: v["bound_ms"] for k, v in adpcm_ms.items()},
-        "adpcm4_tick_ms": atick_med,
-    })
+    # the ADPCM decode's two kernels, each timed at the main-path site whose
+    # wire decode_variant gives it: scan at adpcm4 training, serial at adpcm4
+    # serving
+    for v, symbol, site in (("scan", "adpcm_decode_scan", "4-bit train [64, 64000]"),
+                            ("serial", "adpcm_decode", "4-bit serve [8, 77120]")):
+        at = adpcm_ms[site]
+        kernels.append({
+            "name": symbol,
+            "variant": v,
+            "route": "cuda",
+            "source": "mla_tpu_torch/csrc/adpcm.cu",
+            "replaces": "mla_tpu/data/adpcm.py:435",
+            "replaces_note": "_decode_jnp (4-bit) and _decode2_jnp (:379, 2-bit), a lax.scan, "
+                             "not a pallas_call: a port-only kernel",
+            "launches": dec_launches_by_variant[v],
+            "launches_by_path": {p: c[v] for p, c in dec_by_path.items()},
+            "max_abs_err": max(adpcm_errs[v].values()),
+            "max_abs_err_by_case": adpcm_errs[v],
+            "ms": at[f"{v}_ms"],
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no PyTorch call decodes IMA ADPCM",
+            "site": site,
+            "shape": at["shape"],
+            "block": at["block"],
+            "ms_by_case": {k: c[f"{v}_ms"] for k, c in adpcm_ms.items()},
+            "l2_warm_ms_by_case": {k: c["warm_ms"][v] for k, c in adpcm_ms.items()},
+            "picked_by_case": {k: c["variant"] for k, c in adpcm_ms.items()},
+            "launch_floor_ms_by_bits": {b: adpcm_floor_ms[f"{v} {b}-bit"] for b in codecs},
+            "plain_ms_by_case": {k: c["plain_ms"] for k, c in adpcm_ms.items()},
+            "bound_ms_by_case": {k: c["bound_ms"] for k, c in adpcm_ms.items()},
+        })
     for k, line in (("scale2", 33), ("row_merge", 28)):
         t = probe_ms[k][main_probe]
         by_variant = {"scale2": probe_launches["scale2"]} if k == "scale2" else {

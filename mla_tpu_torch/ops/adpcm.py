@@ -6,9 +6,13 @@ samples (``mla_tpu/data/adpcm.py::_decode_jnp``, ``_decode2_jnp``); no Pallas
 kernel is involved. The port decodes in one hand-written kernel instead of
 a few hundred eager launches per call.
 
-``adpcm_decode`` launches the kernel for a CUDA tensor (or raises) and takes
+``adpcm_decode`` launches a kernel for a CUDA tensor (or raises) and takes
 its plain torch version, ``adpcm_decode_reference``, only for a CPU tensor.
-``LAUNCHES`` counts kernel launches.
+The kernel has two variants: ``scan`` (each block decoded by up to 32
+lanes as a prefix scan over clamped-add maps) and ``serial`` (one lane per
+block). ``decode_variant`` picks one from the codes' width and the block,
+by what each measured on the card. ``LAUNCHES`` counts kernel launches,
+``LAUNCHES_BY_VARIANT`` per variant.
 """
 
 from __future__ import annotations
@@ -23,9 +27,23 @@ from mla_tpu_torch.data.adpcm import STEP_TABLE, padded_samples
 from mla_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches, for showing a run went through the kernel
+LAUNCHES_BY_VARIANT = {"scan": 0, "serial": 0}
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_SIGNATURES = {"mla_adpcm_decode": [_P, _P, _L, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"mla_adpcm_decode": [_P, _P, _L, _I, _I, _I, _I, _P],
+               "mla_adpcm_decode_scan": [_P, _P, _L, _I, _I, _I, _I, _P]}
+
+
+def decode_variant(bits: int, block: int) -> str:
+    """The kernel a decode of ``bits``-bit codes in ``block``-sample units
+    launches. ``scan`` for 4-bit codes in blocks of 256 or more: there it
+    beat ``serial`` (14.1 against 15.3 us at [64, 64000], H100). ``serial``
+    for the rest: at block 64 it was within 1% of ``scan`` on 4-bit codes read
+    from device memory and 7% faster on codes in the L2 cache (where a tick's
+    just-uploaded wire is), 12% faster on 2-bit codes, and on 2-bit codes in
+    blocks of 256 it was 11% faster (PERF.md has the runs). Between 64 and 256
+    nothing was timed."""
+    return "scan" if bits == 4 and block >= 256 else "serial"
 
 
 @functools.lru_cache(maxsize=8)
@@ -92,12 +110,18 @@ def adpcm_decode_reference(wire: torch.Tensor, n: Optional[int] = None, block: i
 
 
 def adpcm_decode(wire: torch.Tensor, n: Optional[int] = None, block: int = 256,
-                 bits: int = 4) -> torch.Tensor:
+                 bits: int = 4, *, _variant: Optional[str] = None) -> torch.Tensor:
     """Wire [..., W] uint8 (``block``-sample units of ``bits``-bit codes) ->
     float32 samples [..., n] in [-1, 1] (n=None: every decoded sample). A
-    CUDA tensor launches the kernel on the current stream; a CPU tensor
-    takes the plain torch version."""
+    CUDA tensor launches the kernel ``decode_variant`` picks on the current
+    stream; a CPU tensor takes the plain torch version. ``_variant``
+    ("scan" or "serial") overrides the pick, for timing the variants side
+    by side."""
     global LAUNCHES
+    if _variant is None:
+        _variant = decode_variant(bits, block)
+    if _variant not in LAUNCHES_BY_VARIANT:
+        raise ValueError(f"unknown variant {_variant!r}; pick from {sorted(LAUNCHES_BY_VARIANT)}")
     n_pad, n = _plan(wire, n, block, bits)
     if wire.device.type == "cpu":
         return adpcm_decode_reference(wire, n, block, bits)
@@ -111,11 +135,14 @@ def adpcm_decode(wire: torch.Tensor, n: Optional[int] = None, block: int = 256,
     lib = _build.load("adpcm", _SIGNATURES)
     with torch.cuda.device(wire.device):
         stream = torch.cuda.current_stream(wire.device).cuda_stream
-        err = lib.mla_adpcm_decode(wire.data_ptr(), out.data_ptr(), rows * (n_pad // block),
-                                   n_pad // block, block, n, bits, stream)
+        args = (wire.data_ptr(), out.data_ptr(), rows * (n_pad // block), n_pad // block, block,
+                n, bits)
+        launch = lib.mla_adpcm_decode_scan if _variant == "scan" else lib.mla_adpcm_decode
+        err = launch(*args, stream)
     if err != 0:
-        raise RuntimeError(f"adpcm_decode kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"adpcm_decode {_variant} kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[_variant] += 1
     return out
 
 
