@@ -36,6 +36,20 @@ printing its last line:
      adpcm2): one decode launch per device step, every one on the variant
      decode_variant picks for the wire (serial at block 64), and the scores held against the float32-wire server fed the
      codec's round trip;
+  5b. the server's ring, packed tick and reload at full width, on the same
+     preset and schedule: the ring (timeline_cap=64) on int16 and adpcm4,
+     whose states must equal the ring-less server's bit for bit, whose
+     per-level sum of weight x probability must equal the pooled state, whose
+     window must match the one-shot AudioTagger.timeline, and which must keep
+     the last 64 of a 70-patch stream; the packed one-upload tick
+     (tick_packed) on int16 and adpcm4, states equal to the three-upload
+     tick's bit for bit, its staging pinned and a buffer of other memory
+     refused; a reload mid-stream to a second seeded set of
+     weights (accumulators and ring kept, a stream opened afterwards equal to
+     a fresh server on the new weights, prepare and commit timed); front-end
+     and decode launches equal to device steps on each of these paths; then
+     one f32 forward each of a VGGish-trunk model and of CompactCNN with
+     norm="group" and norm="none", on the card and on the CPU (TF32 off);
   6. the training path at full width: fit() on the us8k_fused_frontend
      preset as shipped (front-end kernel at "highest", batch 64 of 4 s
      clips), cut only in num_steps / eval_every / checkpoint_every; finite
@@ -62,11 +76,13 @@ printing its last line:
      the serving and training shapes on L2-cold wires and on a wire in the
      L2 cache, both variants, and each variant on one 64-sample unit, its
      launch floor; the mma front-end at the flagship's
-     [128, 160000]); one server tick (int16 and adpcm4) and one train step
-     on the host clock; each kernel's bound; and torch.profiler breakdowns
-     of ten ticks on each of the two wires and five train steps.
+     [128, 160000]); server ticks on the host clock, tick() and the packed
+     tick in turns (int16 with the ring off and on, adpcm4), and one train
+     step; each kernel's bound; and torch.profiler breakdowns (device busy,
+     idle share, host-to-device copies per tick) of ten ticks of each kind
+     and five train steps.
 Launch counts are set to 0 just before each path (probe, serving on each
-wire, training, adpcm4-staged training, the flagship forward and train
+wire, the ring, packed and reload serving paths, training, adpcm4-staged training, the flagship forward and train
 steps) is driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
@@ -128,6 +144,9 @@ ADPCM_SCORE_BUDGET = 1e-3
 ADPCM_LOSS_BUDGET = 1e-4
 # (label, shape, block): the decode kernel at the serving and training sites
 ADPCM_SITES = (("serve [8, 77120]", (8, 77120), 64), ("train [64, 64000]", (64, 64000), 256))
+TIMELINE_CAP = 64  # the ring's patches per stream (8 streams: ~6.5 MB)
+SUM_TOL = 1e-5  # sum_t w * f of a window that covers the stream against the pooled state
+LEFTOVER_TOL = 1e-4  # f32 forward on the card against the CPU, TF32 off
 FLAGSHIP_BATCH = 128  # bench.py's batch of 10 s clips
 FLAGSHIP_STEPS = 3  # train steps per front-end impl before the timed ones
 # (substring of the CUDA symbol, kernel), the first match counting: the
@@ -155,23 +174,39 @@ def _host_median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 
 def _profile(fn, n: int):
-    """torch.profiler over n calls of fn: (host ms per call, device-busy ms
-    per call, [(operator or kernel, device ms per call)] for the top ten and
-    every kernel of the port), or busy None if the profiler saw no device
-    activity."""
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over n calls of fn, after one call in the profiler's
+    warm-up step, whose trace is dropped, and a pause: device records stamped
+    before the window opens are dropped, and without the pause the first
+    call's copies can land there. Returns (host ms per call, device-busy ms per call,
+    [(operator or kernel, device ms per call)] for the top twenty and every
+    kernel of the port, host-to-device copies per call, {copy name: count}),
+    or busy None if the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.005)
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
-    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    # device activity, without the profiler's own step annotation, which
+    # spans the whole window on the device timeline
+    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+              and not ev.name.startswith("ProfilerStep")]
+    copies = {}
+    for ev in device:
+        if "memcpy" in ev.name.lower():
+            copies[ev.name] = copies.get(ev.name, 0) + 1
+    htod = sum(c for k, c in copies.items() if "HtoD" in k) / n
     spans = [(ev.time_range.start, ev.time_range.end) for ev in device]
     if not spans:
-        return host_ms, None, []
+        return host_ms, None, [], htod, copies
     busy_us, cur_s, cur_e = 0.0, None, None
     for s, e in sorted(spans):  # union of the device intervals
         if cur_e is None or s > cur_e:
@@ -192,27 +227,27 @@ def _profile(fn, n: int):
     for k, v in ops:
         totals[k] = totals.get(k, 0.0) + v
     ranked = sorted(totals.items(), key=lambda kv: -kv[1])
-    top = ranked[:10] + [kv for kv in ranked[10:] if kv[0].startswith("kernel ")]
-    return host_ms, busy_us / 1e3 / n, [(k, v / 1e3 / n) for k, v in top]
+    top = ranked[:20] + [kv for kv in ranked[20:] if kv[0].startswith("kernel ")]
+    return host_ms, busy_us / 1e3 / n, [(k, v / 1e3 / n) for k, v in top], htod, copies
 
 
 def _report_profile(what: str, n: int, unprofiled_ms: float, prof, tag: str) -> dict:
-    host, busy, top = prof
+    host, busy, top, htod, copies = prof
     if busy is None:
         print(f"{what} profile: device time not measured (the profiler saw no device "
               f"activity) {tag}")
         return {"host_ms_profiler_on": host, "device_busy_ms": None, "idle_share": None,
-                "top_ms": top}
+                "top_ms": top, "htod_copies_per_run": htod, "copies": copies}
     # the profiler slows the host, not the device: the idle share is the
     # profiled device busy against the unprofiled time of the same work
     idle = 1 - busy / unprofiled_ms
     print(f"{what} profile ({n} runs): device busy {busy:.4f} ms per run; idle share "
           f"against the unprofiled run {idle:.4f}; host with the profiler on {host:.4f} ms "
-          f"per run {tag}")
+          f"per run; host-to-device copies per run {htod:g} (copies seen: {copies}) {tag}")
     for k, v in top:
         print(f"{what} profile: {v:.4f} ms device per run under {k}")
     return {"host_ms_profiler_on": host, "device_busy_ms": busy, "idle_share": idle,
-            "top_ms": top}
+            "top_ms": top, "htod_copies_per_run": htod, "copies": copies}
 
 
 def _frontend_bound(ff, trimmed_spectral_bases, fcfg, b: int, n: int) -> dict:
@@ -255,16 +290,43 @@ def _schedule(streams, rng):
     return schedule
 
 
-def _drive(srv, streams, schedule):
-    """Feed the streams in the schedule's uneven blocks with ticks between,
-    drain, flush every stream, then replace the last stream by a lone
-    sub-patch one; returns the scores of all nine streams."""
+def _in_turns(fns: dict, reps: int = REPS, warmup: int = 3) -> dict:
+    """Host-clock times (ms, each call followed by torch.cuda.synchronize())
+    of the named calls run in turns, the order reversed every round (A B,
+    B A, ...): {name: median} and {name: [times]}."""
+    names, times = list(fns), {k: [] for k in fns}
+    for i in range(warmup + reps):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}, times
+
+
+def _states_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for sa, sb in zip(a, b) for x, y in zip(sa, sb))
+
+
+def _states_max_diff(a, b) -> float:
+    return max(float((x - y).abs().nan_to_num().max()) for sa, sb in zip(a, b)
+               for x, y in zip(sa, sb))
+
+
+def _drive(srv, streams, schedule, packed: bool = False):
+    """Feed the streams in the schedule's uneven blocks with ticks between
+    (the packed tick if ``packed``), drain, flush every stream, then replace
+    the last stream by a lone sub-patch one; returns the scores of all nine
+    streams."""
+    tick = srv.tick_packed if packed else srv.tick
     sids = [srv.open() for _ in streams]
     for step, (i, lo, hi) in enumerate(schedule):
         srv.feed(sids[i], streams[i][lo:hi])
         if step % 5 == 4:
-            srv.tick()
-    srv.drain()
+            tick()
+    while tick():
+        pass
     for sid in sids:
         srv.flush(sid)
     scores = [srv.scores(sid) for sid in sids]
@@ -291,15 +353,18 @@ def main() -> int:
     from mla_tpu_torch.data.sampler import BalancedSampler
     from mla_tpu_torch.data.synthetic import make_dataset
     from mla_tpu_torch.models.convert import flat_to_state_dict, state_dict_to_flat
-    from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.models.trunk import CompactCNN
+    from mla_tpu_torch.models.zoo import build_model, init_weights
     from mla_tpu_torch.entry import entry, flagship_config, flagship_forward
     from mla_tpu_torch.ops import _build
     from mla_tpu_torch.ops import adpcm as ad
+    from mla_tpu_torch.ops import attention_pool as ap
     from mla_tpu_torch.ops import frontend as fe
     from mla_tpu_torch.ops import fused_frontend as ff
     from mla_tpu_torch.ops import row_merge as rm
     from mla_tpu_torch.ops.frontend import trimmed_spectral_bases
     from mla_tpu_torch.serve.server import BatchedStreamingServer
+    from mla_tpu_torch.serve.streaming import _samples_per_patches
     from mla_tpu_torch.train import loop
     from mla_tpu_torch.train.state import create_train_state, make_train_step
     from mla_tpu_torch.utils.cuda_timing import device_median_ms, l2_cold
@@ -586,9 +651,228 @@ def main() -> int:
                                   "frontend_launches": fe_by_variant["mma"],
                                   "score_err_vs_round_trip": werr, "streams": len(wstreams)}
         if wire_name == "adpcm4":
-            asrv = wsrv  # timed below
+            asrv, adpcm4_scores = wsrv, wscores  # held against below, and timed
         del fsrv
     record["adpcm_serving"] = adpcm_serve
+
+    # 5b. the ring, the packed tick and reload on the same serving path.
+    # Launch counts are set to 0 before each path and read after it.
+    def zero_counts():
+        ad.LAUNCHES = ff.LAUNCHES = 0
+        ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
+        ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
+
+    def check_launches(path, steps, adpcm_wire):
+        """Front-end launches on mma = device steps; decode launches on the
+        serving wire's variant = device steps on an adpcm wire, else 0."""
+        fe_l, dec_l = dict(ff.LAUNCHES_BY_VARIANT), dict(ad.LAUNCHES_BY_VARIANT)
+        want_dec = dict.fromkeys(DECODE_VARIANTS, 0)
+        if adpcm_wire:
+            want_dec[ad.decode_variant(4, adpcm.SERVE_BLOCK)] = steps
+        print(f"{path}: {steps} device steps, fused_log_mel_patches launches {fe_l}, "
+              f"adpcm_decode launches {dec_l}")
+        if steps < 1 or fe_l != {"mma": steps, "simt": 0} or dec_l != want_dec:
+            raise RuntimeError(f"{path}: launches {fe_l} / {dec_l} for {steps} device steps")
+        return {"device_steps": steps, "frontend_launches": fe_l, "decode_launches": dec_l}
+
+    new_paths = {}  # path -> its launch record
+    ring, ring_srv = {}, {}
+    for wire_name, base, base_scores in (("int16", srv, scores), ("adpcm4", asrv, adpcm4_scores)):
+        rsrv = BatchedStreamingServer(scfg, state_dict, max_streams=8, chunk_patches=5,
+                                      transfer_dtype=wire_name, timeline_cap=TIMELINE_CAP)
+        rsrv.warmup(packed=True)
+        zero_counts()
+        d0 = rsrv.dispatches
+        rscores = _drive(rsrv, streams, schedule)
+        torch.cuda.synchronize()
+        new_paths[f"serve_ring_{wire_name}"] = check_launches(
+            f"ring, {wire_name} wire", rsrv.dispatches - d0, wire_name == "adpcm4")
+        # a side output: every state bit as without the ring
+        if not _states_equal(rsrv.states, base.states) or not np.array_equal(rscores, base_scores):
+            raise RuntimeError(f"ring, {wire_name}: states differ from the server without the "
+                               f"ring by {_states_max_diff(rsrv.states, base.states)}")
+        # stream 0 (20 patches, slot 0): the window covers it, so per level
+        # sum_t w * f is the pooled state
+        start, levels = rsrv.timeline_from(rsrv.states, rsrv.tl, 0)
+        pooled = [ap.stream_finalize(st)[0].cpu().numpy() for st in rsrv.states]
+        sum_err = max(float(np.abs((w * f).sum(axis=0) - p).max())
+                      for (w, f), p in zip(levels, pooled))
+        n0 = levels[0][0].shape[0]
+        # the one-shot readout of the same audio (as the wire decodes it) on the card
+        if wire_name == "int16":
+            audio0 = pcm16_quantize(streams[0]).astype(np.float32) / 32768.0
+        else:
+            enc4, dec4, _ = codecs[4]
+            audio0 = dec4(enc4(streams[0], block=adpcm.SERVE_BLOCK), n=len(streams[0]),
+                          block=adpcm.SERVE_BLOCK)
+        with torch.inference_mode():
+            one = rsrv.model.timeline(fe.apply_frontend(torch.from_numpy(audio0).cuda()[None],
+                                                        scfg.frontend))
+        one_err = {k: max(float(np.abs(lv[i] - o[i][0].float().cpu().numpy()).max())
+                          for lv, o in zip(levels, one)) for i, k in enumerate(("w", "f"))}
+        print(f"ring, {wire_name} wire: states and scores bit-equal to the server without the "
+              f"ring; stream 0 window start {start}, {n0} patches, {len(levels)} levels; max "
+              f"|sum_t w*f - pooled| {sum_err:.3e} (tol {SUM_TOL:g}); against the one-shot "
+              f"AudioTagger.timeline on the card: weights {one_err['w']:.3e}, probs "
+              f"{one_err['f']:.3e} (bf16 budget {BF16_SCORE_BUDGET:g})")
+        if start != 0 or n0 != one[0][0].shape[1] or sum_err > SUM_TOL \
+                or max(one_err.values()) > BF16_SCORE_BUDGET:
+            raise RuntimeError(f"ring, {wire_name}: start {start}, {n0} patches, sum {sum_err}, "
+                               f"one-shot {one_err}")
+        ring[wire_name] = {"sum_err": sum_err, "oneshot_err": one_err, "patches": n0,
+                           **new_paths[f"serve_ring_{wire_name}"]}
+        ring_srv[wire_name] = rsrv
+
+    # a 70-patch stream: the ring keeps its last 64
+    rsrv = ring_srv["int16"]
+    zero_counts()
+    d0 = rsrv.dispatches
+    long_sid = rsrv.open()
+    n_long = 70
+    rsrv.feed(long_sid, np.tile(streams[3], 4)[:_samples_per_patches(scfg.frontend, n_long)])
+    rsrv.drain()
+    rsrv.flush(long_sid)
+    start, levels = rsrv.timeline(long_sid)
+    torch.cuda.synchronize()
+    new_paths["serve_ring_wrap"] = check_launches("ring wrap", rsrv.dispatches - d0, False)
+    count = int(rsrv.tl.count[long_sid])
+    print(f"ring wrap: a {n_long}-patch stream, count {count}, window start {start}, "
+          f"{levels[0][0].shape[0]} patches kept (cap {TIMELINE_CAP})")
+    if count != n_long or start != count - TIMELINE_CAP or levels[0][0].shape[0] != TIMELINE_CAP:
+        raise RuntimeError(f"ring wrap: count {count}, start {start}")
+    rsrv.close(long_sid)
+    ring["wrap"] = {"count": count, "start": start}
+
+    # the packed one-upload tick through the same schedule, against the
+    # three-upload tick's states
+    packed_rec = {}
+    for wire_name, base, base_scores in (("int16", srv, scores), ("adpcm4", asrv, adpcm4_scores)):
+        psrv = BatchedStreamingServer(scfg, state_dict, max_streams=8, chunk_patches=5,
+                                      transfer_dtype=wire_name)
+        psrv.warmup(packed=True)
+        zero_counts()
+        d0 = psrv.dispatches
+        pscores = _drive(psrv, streams, schedule, packed=True)
+        torch.cuda.synchronize()
+        rec = check_launches(f"packed tick, {wire_name} wire", psrv.dispatches - d0,
+                             wire_name == "adpcm4")
+        diff = _states_max_diff(psrv.states, base.states)
+        same = _states_equal(psrv.states, base.states) and np.array_equal(pscores, base_scores)
+        print(f"packed tick, {wire_name} wire: states against the three-upload tick's: "
+              f"{'bit-equal' if same else 'NOT bit-equal'}, max |diff| {diff:.3e}; packed "
+              f"buffer {psrv.packed_nbytes} bytes per tick")
+        if not same:
+            raise RuntimeError(f"packed tick, {wire_name}: states differ by {diff}")
+        # staging is pinned memory, and a buffer of other memory is refused
+        # rather than copied from pageable memory
+        if not psrv.packed_buffer().base.is_pinned():
+            raise RuntimeError("packed_buffer() did not hand out pinned memory")
+        try:
+            psrv.put_packed(np.zeros(psrv.packed_nbytes, np.uint8))
+            raise RuntimeError("put_packed took a buffer that packed_buffer() did not make")
+        except ValueError:
+            pass
+        new_paths[f"serve_packed_{wire_name}"] = rec
+        packed_rec[wire_name] = {"bit_equal": same, "packed_nbytes": psrv.packed_nbytes, **rec}
+        del psrv
+
+    # reload mid-stream to a second seeded set of weights, on the int16 ring server
+    model2 = build_model(scfg.model, device="cpu", seed=SEED + 1)
+    state_dict2 = flat_to_state_dict(state_dict_to_flat(model2.state_dict()), model2)
+    zero_counts()
+    d0 = rsrv.dispatches
+    a = rsrv.open()
+    half = len(streams[1]) // 2
+    rsrv.feed(a, streams[1][:half])
+    rsrv.drain()
+    torch.cuda.synchronize()
+
+    def rows(r):
+        return [t[a].clone() for st in r.states for t in st] + [t[a].clone() for t in r.tl]
+
+    kept = rows(rsrv)
+    t0 = time.perf_counter()
+    build_model(scfg.model, device="cpu")  # the part of prepare_reload that builds a module
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    staged = rsrv.prepare_reload(state_dict2)
+    torch.cuda.synchronize()
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    old_model = rsrv.model  # held, so the commit is timed apart from the old model's release
+    t0 = time.perf_counter()
+    rsrv.commit_reload(staged)
+    commit_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    del old_model
+    release_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(x, y) for x, y in zip(kept, rows(rsrv))):
+        raise RuntimeError("reload changed the open stream's accumulators or ring")
+    rsrv.feed(a, streams[1][half:])
+    rsrv.drain()
+    rsrv.flush(a)
+    a_scores = rsrv.scores(a)
+    a_start, a_levels = rsrv.timeline(a)
+    rsrv.close(a)
+    b = rsrv.open()
+    rsrv.feed(b, streams[2])
+    rsrv.drain()
+    rsrv.flush(b)
+    b_scores = rsrv.scores(b)
+    rsrv.close(b)
+    torch.cuda.synchronize()
+    new_paths["serve_reload"] = check_launches("reload", rsrv.dispatches - d0, False)
+    fresh = BatchedStreamingServer(scfg, state_dict2, max_streams=8, chunk_patches=5,
+                                   transfer_dtype="int16", timeline_cap=TIMELINE_CAP)
+    r = fresh.open()
+    fresh.feed(r, streams[2])
+    fresh.drain()
+    fresh.flush(r)
+    fresh_scores = fresh.scores(r)
+    reload_err = float(np.abs(b_scores - fresh_scores).max())
+    print(f"reload: prepare_reload {prepare_ms:.4f} ms (a model build on the CPU alone, PyTorch's "
+          f"default init: {build_ms:.4f} ms), commit_reload {commit_ms:.6f} ms, then the old "
+          f"model's release {release_ms:.6f} ms, host clock; the open stream's accumulators "
+          f"and ring kept bit for bit; its scores after the "
+          f"swap in [{a_scores.min():.4f}, {a_scores.max():.4f}], window {a_levels[0][0].shape[0]} "
+          f"patches; a stream opened after it (slot {b}) against a fresh server on the new "
+          f"weights (slot {r}): max |diff| {reload_err:.3e}; against the old weights' scores "
+          f"max |diff| {float(np.abs(b_scores - scores[2]).max()):.3e} {tag}")
+    if b != r or not np.array_equal(b_scores, fresh_scores) or np.allclose(b_scores, scores[2]) \
+            or not np.isfinite(a_scores).all():
+        raise RuntimeError(f"reload: slot {b} / {r}, against the fresh server {reload_err}")
+    reload_rec = {"prepare_ms": prepare_ms, "build_ms": build_ms, "commit_ms": commit_ms,
+                  "release_ms": release_ms,
+                  "fresh_err": reload_err,
+                  **new_paths["serve_reload"]}
+    del fresh, staged, model2
+    record.update(ring=ring, packed=packed_rec, reload=reload_rec)
+
+    # the model's leftovers: one f32 forward each on the card and on the CPU
+    xl = torch.randn((2, 4, 96, 64), generator=gen)
+    leftovers = {}
+    vcfg = get_config("streaming_inference", {"model.trunk": "vggish",
+                                              "model.compute_dtype": "float32"}).model
+    nets = {"vggish AudioTagger": lambda: build_model(vcfg, device="cpu", seed=SEED)}
+    for norm in ("group", "none"):
+        nets[f"CompactCNN norm={norm}"] = lambda norm=norm: init_weights(
+            CompactCNN(norm=norm, dtype=torch.float32),
+            torch.Generator().manual_seed(SEED)).eval()
+    for what, make in nets.items():
+        net = make()
+        x = xl if what.startswith("vggish") else xl[0]
+        with torch.inference_mode():
+            on_cpu = net(x)
+            on_card = net.cuda()(x.cuda()).cpu()
+        err = float((on_card - on_cpu).abs().max())
+        leftovers[what] = {"max_abs_err": err, "shape": list(on_cpu.shape),
+                           "max_abs": float(on_cpu.abs().max())}
+        print(f"leftover {what}: f32 forward {list(x.shape)} -> {list(on_cpu.shape)}, card "
+              f"against the CPU max |diff| {err:.3e} (tol {LEFTOVER_TOL:g}; outputs up to "
+              f"{leftovers[what]['max_abs']:.4f})")
+        if not torch.isfinite(on_card).all() or err > LEFTOVER_TOL:
+            raise RuntimeError(f"{what}: card against CPU {err}")
+        del net
+    record["leftovers"] = leftovers
 
     # 6. the training path at full width
     tcfg = get_config("us8k_fused_frontend", TRAIN_CUT)
@@ -676,6 +960,7 @@ def main() -> int:
     # each decode variant is some main-path site's pick
     dec_by_path = {"serve_adpcm4": adpcm_serve["adpcm4"]["decode_launches_by_variant"],
                    "serve_adpcm2": adpcm_serve["adpcm2"]["decode_launches_by_variant"],
+                   **{p: r["decode_launches"] for p, r in new_paths.items() if "adpcm4" in p},
                    "train_adpcm4": a_dec_by_variant}
     dec_launches_by_variant = {v: sum(p[v] for p in dec_by_path.values())
                                for v in DECODE_VARIANTS}
@@ -972,23 +1257,41 @@ def main() -> int:
     record["flagship_frontend"] = flagship_fe
     del fw
 
-    # one server tick, host clock, and its profile
+    # server ticks on the host clock: tick() and the packed tick in turns,
+    # on int16 with the ring off and on (four calls in turns) and on adpcm4,
+    # then a profile of ten of each: device busy, idle share, host-to-device
+    # copies per tick
     n_prof = 10
     tick_audio = (0.1 * rng.standard_normal(
-        srv.chunk_samples + (REPS + 3 + n_prof) * srv.hop_samples)).astype(np.float32)
-    for _ in range(8):
-        srv.feed(srv.open(), tick_audio)
-    tick_med = _host_median_ms(srv.tick)
-    print(f"time: server tick, 8 int16 streams x 5 patches, host clock: {tick_med:.4f} ms {tag}")
-    tick_prof = _report_profile("tick", n_prof, tick_med, _profile(srv.tick, n_prof), tag)
-    for _ in range(8):
-        asrv.feed(asrv.open(), tick_audio)
-    ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
-    atick_med = _host_median_ms(asrv.tick)
-    print(f"time: server tick, 8 adpcm4 streams x 5 patches, host clock: {atick_med:.4f} ms; "
-          f"decode launches in {REPS + 3} ticks {dict(ad.LAUNCHES_BY_VARIANT)} {tag}")
-    atick_prof = _report_profile("adpcm4 tick", n_prof, atick_med, _profile(asrv.tick, n_prof),
-                                 tag)
+        srv.chunk_samples + (2 * (REPS + 3 + n_prof + 1) + 2) * srv.hop_samples)
+                  ).astype(np.float32)
+    ticks = {}
+    for label, servers in (("int16", {"": srv, "ring ": ring_srv["int16"]}),
+                           ("adpcm4", {"": asrv})):
+        fns = {}
+        for prefix, tsrv in servers.items():
+            for _ in range(8):
+                tsrv.feed(tsrv.open(), tick_audio)
+            fns.update({f"{prefix}tick": tsrv.tick, f"{prefix}packed": tsrv.tick_packed})
+        med, times = _in_turns(fns)
+        t = {"ms": med, "times_ms": times}
+        for kind, fn in fns.items():
+            t[f"{kind} profile"] = prof = _report_profile(f"{label} {kind}", n_prof, med[kind],
+                                                          _profile(fn, n_prof), tag)
+            want = 1 if kind.endswith("packed") else 3
+            if prof["htod_copies_per_run"] != want:
+                raise RuntimeError(f"{label} {kind}: {prof['htod_copies_per_run']} host-to-device "
+                                   f"copies per tick, want {want}: {prof['copies']}")
+        print(f"time: {label} server, 8 streams x 5 patches, host clock, in turns ({REPS} each): "
+              + "; ".join(f"{k} {med[k]:.4f} ms (device busy "
+                          f"{t[k + ' profile']['device_busy_ms']:.4f} ms, idle share "
+                          f"{t[k + ' profile']['idle_share']:.4f}, host-to-device copies "
+                          f"{t[k + ' profile']['htod_copies_per_run']:g})" for k in fns)
+              + f" {tag}")
+        ticks[label] = t
+    record["ticks"] = ticks
+    tick_med, tick_prof = ticks["int16"]["ms"]["tick"], ticks["int16"]["tick profile"]
+    atick_med, atick_prof = ticks["adpcm4"]["ms"]["tick"], ticks["adpcm4"]["tick profile"]
     atick_decode_ms = dict(atick_prof["top_ms"]).get(
         f"kernel adpcm_decode {ad.decode_variant(4, adpcm.SERVE_BLOCK)}")
     print(f"adpcm4 tick against the int16 tick: device busy {atick_prof['device_busy_ms']} "
@@ -1026,6 +1329,7 @@ def main() -> int:
     fe_by_path = {"serve": serve_by_variant, "train": train_by_variant,
                   "serve_adpcm4": {"mma": adpcm_serve["adpcm4"]["frontend_launches"], "simt": 0},
                   "serve_adpcm2": {"mma": adpcm_serve["adpcm2"]["frontend_launches"], "simt": 0},
+                  **{p: r["frontend_launches"] for p, r in new_paths.items()},
                   "train_adpcm4": a_fe, "flagship_forward": fwd_launches,
                   "flagship_train": flagship["pallas"]["frontend_launches"]}
     kernels = [{

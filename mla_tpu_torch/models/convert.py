@@ -10,7 +10,7 @@ rule:
   params/.../kernel  (4-D, conv, HWIO)  -> ....weight  (OIHW)
   params/.../kernel  (2-D, Dense [in, out]) -> ....weight  ([out, in])
   params/.../bias                       -> ....bias
-  params/.../scale   (batch norm)       -> ....weight
+  params/.../scale   (batch / group norm) -> ....weight
   batch_stats/.../mean, var             -> ....running_mean, running_var
 
 A batch norm's ``num_batches_tracked`` has no flat counterpart: import sets
@@ -102,22 +102,20 @@ def flat_to_state_dict(flat: Mapping, model: torch.nn.Module) -> Dict[str, torch
 
 def state_dict_to_flat(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's ``state_dict`` -> flat weights, the inverse of
-    :func:`flat_to_state_dict`. Batch-norm modules are recognized by their
-    running statistics."""
-    bn_prefixes = {k[: -len("running_mean")] for k in state_dict if k.endswith("running_mean")}
+    :func:`flat_to_state_dict`. A 1-D ``weight`` is a norm's scale (conv
+    and Dense weights are 4-D and 2-D)."""
     flat: Dict[str, np.ndarray] = {}
     for tkey, t in state_dict.items():
         if tkey.endswith("num_batches_tracked"):
             continue
         prefix, leaf = tkey.rsplit(".", 1)
         path = prefix.replace(".", "/")
-        is_bn = f"{prefix}." in bn_prefixes
         if leaf == "running_mean":
             fkey = f"batch_stats/{path}/mean"
         elif leaf == "running_var":
             fkey = f"batch_stats/{path}/var"
         elif leaf == "weight":
-            fkey = f"params/{path}/{'scale' if is_bn else 'kernel'}"
+            fkey = f"params/{path}/{'scale' if t.dim() == 1 else 'kernel'}"
         elif leaf == "bias":
             fkey = f"params/{path}/bias"
         else:

@@ -1,5 +1,7 @@
-"""Segment-embedding trunk (counterpart of ``mla_tpu/models/trunk.py``):
+"""Segment-embedding trunks (counterpart of ``mla_tpu/models/trunk.py``):
 a deep CNN over each 96x64 log-mel patch -> one embedding per ~1 s segment.
+``CompactCNN`` is the configurable conv stack (batch, group or no norm);
+``VGGish`` the canonical VGGish topology.
 
 The public layout is the reference's NHWC ([B, H, W] or [B, H, W, 1] in);
 the module permutes to NCHW inside, PyTorch's native conv layout. Compute
@@ -19,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default epsilon
+_GN_EPS = 1e-6  # flax nn.GroupNorm's default epsilon (torch's GroupNorm uses 1e-5)
 _BN_MOMENTUM = 0.99  # flax convention: running = 0.99 * running + 0.01 * batch
 
 
@@ -62,31 +65,61 @@ class _BatchNorm(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+def _conv3x3(conv: nn.Conv2d, x: torch.Tensor, dt) -> torch.Tensor:
+    """A "SAME" 3x3 convolution computing in ``dt`` (flax nn.Conv's dtype)."""
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return F.conv2d(x, conv.weight.to(dt), bias, padding=1)
+
+
+class _GroupNorm(nn.GroupNorm):
+    """Group norm with flax's arithmetic: per (sample, group) mean and
+    variance over the group's channels and the map in f32, fast biased
+    variance max(0, E[x^2] - E[x]^2), then (x - mean) * (scale *
+    rsqrt(var + eps)) + bias in f32, cast back to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, g = x.shape[0], x.shape[1], self.num_groups
+        xf = x.float()
+        grp = xf.reshape(b, g, -1)
+        mean = grp.mean(dim=-1)
+        var = torch.clamp_min((grp * grp).mean(dim=-1) - mean * mean, 0.0)
+        shape = (b, c, 1, 1)
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(c // g, dim=1) * self.weight
+        y = (xf - mean.repeat_interleave(c // g, dim=1).view(shape)) * mul.view(shape)
+        return (y + self.bias.view(1, c, 1, 1)).to(x.dtype)
+
+
 class CompactCNN(nn.Module):
-    """conv stages (3x3 conv + batch norm + ReLU) x convs_per_stage, a 2x2
-    pool between stages while the map is at least 2x2, global pooling and
-    Dense -> embed_dim + ReLU. ``pool="avg"`` with ``global_pool="avg+max"``
-    is the PANNs CNN10/CNN14 block structure."""
+    """conv stages (3x3 conv + norm + ReLU) x convs_per_stage, a 2x2 pool
+    between stages while the map is at least 2x2, global pooling and Dense
+    -> embed_dim + ReLU. ``norm`` is "batch" (``bn{stage}_{i}``), "group"
+    (min(32, channels) groups, ``gn{stage}_{i}``) or "none" (the conv gets
+    a bias). ``pool="avg"`` with ``global_pool="avg+max"`` is the PANNs
+    CNN10/CNN14 block structure."""
 
     def __init__(self, conv_channels: Sequence[int] = (64, 128, 256, 512),
                  convs_per_stage: int = 2, embed_dim: int = 128, norm: str = "batch",
                  pool: str = "max", global_pool: str = "avg", dtype=torch.bfloat16):
         super().__init__()
-        if norm != "batch":
-            raise NotImplementedError(
-                f"CompactCNN norm={norm!r}: only batch norm is ported (ROADMAP.md queue A)")
+        if norm not in ("batch", "group", "none"):
+            raise ValueError(f"unknown norm {norm!r}")
         if pool not in ("max", "avg") or global_pool not in ("avg", "avg+max"):
             raise ValueError(f"unknown pool {pool!r} / global_pool {global_pool!r}")
         self.conv_channels = tuple(conv_channels)
         self.convs_per_stage = convs_per_stage
+        self.norm = norm
         self.pool = pool
         self.global_pool = global_pool
         self.compute_dtype = dtype
         cin = 1
         for stage, ch in enumerate(self.conv_channels):
             for i in range(convs_per_stage):
-                self.add_module(f"conv{stage}_{i}", nn.Conv2d(cin, ch, 3, padding=1, bias=False))
-                self.add_module(f"bn{stage}_{i}", _BatchNorm(ch, eps=_BN_EPS))
+                self.add_module(f"conv{stage}_{i}",
+                                nn.Conv2d(cin, ch, 3, padding=1, bias=norm == "none"))
+                if norm == "batch":
+                    self.add_module(f"bn{stage}_{i}", _BatchNorm(ch, eps=_BN_EPS))
+                elif norm == "group":
+                    self.add_module(f"gn{stage}_{i}", _GroupNorm(min(32, ch), ch, eps=_GN_EPS))
                 cin = ch
         self.embed = Dense(cin, embed_dim, dtype)
 
@@ -98,9 +131,12 @@ class CompactCNN(nn.Module):
         x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> NCHW
         for stage in range(len(self.conv_channels)):
             for i in range(self.convs_per_stage):
-                conv = getattr(self, f"conv{stage}_{i}")
-                x = F.conv2d(x, conv.weight.to(dt), padding=1)
-                x = torch.relu(getattr(self, f"bn{stage}_{i}")(x))
+                x = _conv3x3(getattr(self, f"conv{stage}_{i}"), x, dt)
+                if self.norm == "batch":
+                    x = getattr(self, f"bn{stage}_{i}")(x)
+                elif self.norm == "group":
+                    x = getattr(self, f"gn{stage}_{i}")(x)
+                x = torch.relu(x)
             if min(x.shape[2], x.shape[3]) >= 2:
                 x = F.avg_pool2d(x, 2, 2) if self.pool == "avg" else F.max_pool2d(x, 2, 2)
         if self.global_pool == "avg+max":
@@ -108,3 +144,40 @@ class CompactCNN(nn.Module):
         else:
             x = x.mean(dim=(2, 3))
         return torch.relu(self.embed(x))
+
+
+class VGGish(nn.Module):
+    """The canonical VGGish topology: conv3x3-64 / pool / conv3x3-128 / pool /
+    (conv3x3-256) x 2 / pool / (conv3x3-512) x 2 / pool / flatten / FC 4096 /
+    FC 4096 / FC embed_dim, ReLU after each, 2x2 max pools, 96x64x1 in. The
+    flatten takes the [6, 4, 512] map in NHWC order, as flax does, so the
+    first FC's weight crosses the flat format by the plain transpose rule."""
+
+    _PLAN = ((64, 1), (128, 1), (256, 2), (512, 2))
+
+    def __init__(self, embed_dim: int = 128, dtype=torch.bfloat16):
+        super().__init__()
+        self.compute_dtype = dtype
+        cin = 1
+        for stage, (ch, reps) in enumerate(self._PLAN):
+            for i in range(reps):
+                self.add_module(f"conv{stage + 1}_{i + 1}", nn.Conv2d(cin, ch, 3, padding=1))
+                cin = ch
+        self.fc1_1 = Dense(6 * 4 * 512, 4096, dtype)
+        self.fc1_2 = Dense(4096, 4096, dtype)
+        self.fc2 = Dense(4096, embed_dim, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, 96, 64] or [B, 96, 64, 1] log-mel patches -> [B, embed_dim]."""
+        if x.dim() == 3:
+            x = x.unsqueeze(-1)
+        dt = self.compute_dtype
+        x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> NCHW
+        for stage, (_, reps) in enumerate(self._PLAN):
+            for i in range(reps):
+                x = torch.relu(_conv3x3(getattr(self, f"conv{stage + 1}_{i + 1}"), x, dt))
+            x = F.max_pool2d(x, 2, 2)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten in NHWC order
+        x = torch.relu(self.fc1_1(x))
+        x = torch.relu(self.fc1_2(x))
+        return torch.relu(self.fc2(x))

@@ -8,7 +8,7 @@ flat weight format maps onto the ``state_dict`` by rule
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -21,7 +21,8 @@ from mla_tpu_torch.models.heads import (
     EmbeddedMapping,
     MultiHeadAttentionPool,
 )
-from mla_tpu_torch.models.trunk import CompactCNN, Dense
+from mla_tpu_torch.models.trunk import CompactCNN, Dense, VGGish
+from mla_tpu_torch.ops.attention_pool import attention_timeline
 
 VARIANTS = (
     "multi_level_attention",
@@ -53,8 +54,7 @@ class AudioTagger(nn.Module):
             self.trunk_module = CompactCNN(chans, 2, cfg.embed_dim, pool="avg",
                                            global_pool="avg+max", dtype=dtype)
         elif cfg.trunk == "vggish":
-            raise NotImplementedError(
-                "trunk='vggish' is not ported yet (ROADMAP.md queue A, item 3: VGGish trunk)")
+            self.trunk_module = VGGish(cfg.embed_dim, dtype=dtype)
         elif cfg.trunk == "none":
             self.trunk_module = None
         else:
@@ -132,6 +132,16 @@ class AudioTagger(nn.Module):
         if variant == "multi_attention":
             return self.mh.logits(h)
         return [self.pool.logits(h)]
+
+    def timeline(self, x: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Weakly supervised localization: per level or head, ``(weights [B,
+        T, C], seg_probs [B, T, C])``, where sum_t weights * seg_probs is
+        that level's pooled vector (``ops.attention_pool.attention_timeline``
+        under the variant's streaming activations)."""
+        from mla_tpu_torch.serve.streaming import stream_activations
+
+        att_act, cla_act = stream_activations(self.cfg)
+        return [attention_timeline(g, c, att_act, cla_act) for g, c in self.segment_logits(x)]
 
     def finalize_multi_level(self, pooled: List[torch.Tensor]) -> torch.Tensor:
         """Concat per-level pooled vectors -> final FC + sigmoid (streaming tail)."""

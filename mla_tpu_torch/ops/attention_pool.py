@@ -11,14 +11,18 @@ for the exp gate, so any length of audio folds into O(1) state. Masked
 segments carry gate logits of -inf and add nothing under every gate. The
 ``max`` mode is the max-pool baseline's running maximum.
 
-The timeline ring and the cross-device merge are not ported yet
-(ROADMAP.md queue A).
+The timeline ring (``TimelineState``) keeps the last ``cap`` patches' gate
+logits and segment probabilities per stream on the device, written beside
+the fold; ``read_timeline`` turns one stream's window into per-patch
+weights with one device-to-host copy. The cross-device merge is not ported
+yet (ROADMAP.md queue A, item 9).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -167,3 +171,122 @@ def merge_stream_states(a: StreamState, b: StreamState, att_activation: str = "e
 def stream_finalize(state: StreamState) -> torch.Tensor:
     """Running state -> clip scores; equal to whole-clip attention_pool."""
     return state.num / torch.clamp(state.den, min=_EPS)
+
+
+class TimelineState(NamedTuple):
+    """O(cap) per-stream localization ring: the last ``cap`` patches' raw
+    gate logits and segment probabilities per level, on the device. The
+    update returns new tensors, so a (states, tl) pair read out later is a
+    snapshot that no later tick overwrites."""
+
+    g: torch.Tensor  # [S, cap, L, C] raw gate logits of the last cap patches
+    f: torch.Tensor  # [S, cap, L, C] segment probabilities (post-activation)
+    cursor: torch.Tensor  # [S] int32 next ring slot to write
+    count: torch.Tensor  # [S] int32 valid patches ever folded
+
+
+def init_timeline_state(n_streams: int, cap: int, n_levels: int, n_classes: int,
+                        dtype=torch.float32, device=None) -> TimelineState:
+    ring = (n_streams, cap, n_levels, n_classes)
+    return TimelineState(
+        g=torch.zeros(ring, dtype=dtype, device=device),
+        f=torch.zeros(ring, dtype=dtype, device=device),
+        cursor=torch.zeros(n_streams, dtype=torch.int32, device=device),
+        count=torch.zeros(n_streams, dtype=torch.int32, device=device),
+    )
+
+
+def update_timeline_state(
+    tl: TimelineState,
+    gate_stack: torch.Tensor,  # [S, P, L, C] raw gate logits of this chunk
+    prob_stack: torch.Tensor,  # [S, P, L, C] segment probabilities
+    active: torch.Tensor,  # [S] bool
+    n_valid: torch.Tensor,  # [S] int valid patches (<= P; a flush pads)
+) -> TimelineState:
+    """Fold one chunk's per-patch readout into the ring. The write is masked
+    per (stream, patch): an inactive row or a padded flush patch keeps the
+    slot's old content (an unconditional write would clobber good entries
+    once the ring has wrapped). Needs P <= cap, so a chunk's slots are
+    distinct."""
+    s, p = gate_stack.shape[:2]
+    cap = tl.g.shape[1]
+    dev = gate_stack.device
+    s_idx = torch.arange(s, device=dev)[:, None]  # [S, 1]
+    p_idx = torch.arange(p, device=dev)[None, :]  # [1, P]
+    idx = (tl.cursor[:, None] + p_idx) % cap  # [S, P]
+    valid = (active[:, None] & (p_idx < n_valid[:, None]))[..., None, None]
+    g = tl.g.index_put((s_idx, idx), torch.where(valid, gate_stack, tl.g[s_idx, idx]))
+    f = tl.f.index_put((s_idx, idx), torch.where(valid, prob_stack, tl.f[s_idx, idx]))
+    adv = torch.where(active, n_valid, 0).to(torch.int32)
+    return TimelineState(g=g, f=f, cursor=(tl.cursor + adv) % cap, count=tl.count + adv)
+
+
+def window_timeline(gate_window, prob_window, num, den, m, att_activation: str = "exp"):
+    """Final per-patch weights for a recorded window of gate logits,
+    normalized against the stream's final ``StreamState`` row (num, den, m),
+    in host numpy. For the exp gate the weights are globally exact,
+    w_t = exp(g_t - m) / den: once the ring has dropped old patches they sum
+    to the share of attention mass the window covers. For the max gate they
+    mark the window's copies of the global maximum, split across ties.
+    Returns ``(weights, prob_window)``, both [T, C] float32."""
+    g = np.asarray(gate_window, np.float32)
+    f = np.asarray(prob_window, np.float32)
+    num = np.asarray(num, np.float32)
+    den = np.asarray(den, np.float32)
+    m = np.asarray(m, np.float32)
+    if att_activation == "max":
+        winners = (f >= num) & np.isfinite(g)
+        w = winners / np.maximum(winners.sum(axis=0, keepdims=True), 1)
+        return w.astype(np.float32), f
+    if att_activation == "exp":
+        att = np.exp(g - np.where(np.isfinite(m), m, 0.0)[None, :])
+    elif att_activation == "sigmoid":
+        att = 1.0 / (1.0 + np.exp(-g))
+    elif att_activation == "relu":
+        att = np.maximum(g, 0.0)
+    elif att_activation == "softplus":
+        att = np.logaddexp(g, 0.0)
+    else:
+        raise ValueError(f"unknown att_activation {att_activation!r}")
+    return (att / np.maximum(den[None, :], _EPS)).astype(np.float32), f
+
+
+def _pack_timeline(tl: TimelineState, states, sid: int, extra=None) -> torch.Tensor:
+    """Everything one stream's readout needs, gathered on the device into
+    one f32 tensor: the optional ``extra`` row first, the ring rows, each
+    level's (num, den, m), and last (cursor, count) as int32 bits in two
+    f32 lanes."""
+    parts = [] if extra is None else [extra.to(torch.float32).reshape(-1)]
+    parts += [tl.g[sid].to(torch.float32).reshape(-1), tl.f[sid].to(torch.float32).reshape(-1)]
+    parts += [torch.stack([st.num[sid], st.den[sid], st.m[sid]]).to(torch.float32).reshape(-1)
+              for st in states]
+    ints = torch.stack([tl.cursor[sid], tl.count[sid]]).to(torch.int32)
+    parts.append(ints.view(torch.float32))
+    return torch.cat(parts)
+
+
+def read_timeline(states, tl, sid: int, att_activation: str, extra=None):
+    """One stream's window against its final accumulator state:
+    ``(start_patch, [(weights [T, C], probs [T, C]) per level])``, oldest
+    patch first, weights by :func:`window_timeline`, in one device-to-host
+    copy. ``extra``, a 1-D tensor on the same device (the clip scores),
+    rides the same copy; then the result is ``(start_patch, levels,
+    extra_values)``."""
+    if tl is None:
+        raise RuntimeError("timeline disabled; construct with timeline_cap > 0")
+    blob = _pack_timeline(tl, states, sid, extra).cpu().numpy()
+    k = 0 if extra is None else int(extra.shape[-1])
+    cur, cnt = (int(v) for v in blob[-2:].view(np.int32))
+    cap, n_levels, c = tl.g.shape[1:]
+    ring = cap * n_levels * c
+    g = blob[k: k + ring].reshape(cap, n_levels, c)
+    f = blob[k + ring: k + 2 * ring].reshape(cap, n_levels, c)
+    st = blob[k + 2 * ring: -2].reshape(n_levels, 3, c)  # [L, (num, den, m), C]
+    n = min(cnt, cap)
+    idx = (cur - n + np.arange(n)) % cap  # oldest -> newest
+    levels = [window_timeline(g[idx, li], f[idx, li], st[li, 0], st[li, 1], st[li, 2],
+                              att_activation)
+              for li in range(n_levels)]
+    if extra is None:
+        return cnt - n, levels
+    return cnt - n, levels, blob[:k].copy()

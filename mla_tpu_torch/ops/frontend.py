@@ -151,13 +151,22 @@ def device_bases(cfg: FrontendConfig, device: torch.device):
 def log_mel_spectrogram(
     x: torch.Tensor, cfg: FrontendConfig = FrontendConfig(), method: str = "matmul"
 ) -> torch.Tensor:
-    """Waveform [..., n] f32 -> log-mel [..., num_frames, num_mel_bins]."""
-    if method != "matmul":
-        raise NotImplementedError(
-            f"method={method!r}: only the matmul front-end is ported (ROADMAP.md queue A)")
+    """Waveform [..., n] f32 -> log-mel [..., num_frames, num_mel_bins].
+    ``method="matmul"`` takes the DFT as two products over the mel-active
+    bins; ``"fft"`` takes ``torch.fft.rfft`` of the Hann-windowed frames at
+    fft_size and the full filterbank."""
     mel_prec = "highest" if cfg.precision == "bf16x3" else cfg.precision
-    cos_b, sin_b, mel_t = device_bases(cfg, x.device)
     frames = frame_signal(x.to(torch.float32), cfg.window_length, cfg.hop_length)
+    if method == "fft":
+        win = torch.from_numpy(periodic_hann(cfg.window_length)).to(x.device)
+        mag = torch.fft.rfft(frames * win, n=cfg.fft_size, dim=-1).abs()
+        mel_w = torch.from_numpy(mel_filterbank(
+            cfg.num_mel_bins, cfg.num_spectrogram_bins, cfg.sample_rate,
+            cfg.mel_min_hz, cfg.mel_max_hz)).to(x.device)
+        return torch.log(dot(mag, mel_w, mel_prec) + cfg.log_offset)
+    if method != "matmul":
+        raise ValueError(f"unknown stft method {method!r}")
+    cos_b, sin_b, mel_t = device_bases(cfg, x.device)
     re = dot(frames, cos_b, cfg.precision)
     im = dot(frames, sin_b, cfg.precision)
     mag = torch.sqrt(re * re + im * im)

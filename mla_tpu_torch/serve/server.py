@@ -15,8 +15,15 @@ block units (``data/adpcm.py``): a pre-encoded feed is routed as it is, a
 sample feed is encoded at feed time with a per-stream sub-block remainder,
 and the tick decodes on the device (``ops/adpcm.py``, a CUDA kernel).
 
-Not ported yet (ROADMAP.md queue A): the packed one-upload tick, the
-timeline ring, a device mesh and weight reload.
+The packed tick (``tick_packed``; ``packed_buffer`` / ``gather_ready_packed``
+/ ``put_packed`` / ``_packed_step`` for a front that drives it) makes a
+regular tick one upload of a flat uint8 buffer, [S * row wire bytes][S
+active bytes], unpacked on the device. ``timeline_cap`` keeps a per-stream
+localization ring on the device, written inside the step. Weights reload
+with ``prepare_reload`` / ``commit_reload`` while streams stay open. The
+device steps are functional: ``states, tl = step(states, tl, ...)`` returns
+new tensors, so a (states, tl) pair a reader holds is a snapshot. A device
+mesh is not ported yet (ROADMAP.md queue A, item 9).
 """
 
 from __future__ import annotations
@@ -63,7 +70,13 @@ class BatchedStreamingServer:
         """``transfer_dtype`` is the wire the buffers hold and the upload
         carries: "float32", "int16" (PCM16, dequantized on the device),
         "uint8" (8-bit mu-law, expanded on the device), "adpcm4" or "adpcm2"
-        (4- or 2-bit block ADPCM, decoded on the device)."""
+        (4- or 2-bit block ADPCM, decoded on the device).
+
+        ``timeline_cap`` > 0 keeps each stream's last timeline_cap patches'
+        gate logits and segment probabilities per level on the device
+        (``ops.attention_pool.TimelineState``, S * cap * levels * classes *
+        8 bytes), written inside the step; ``timeline()`` reads it. 0 adds
+        no op to the step."""
         if cfg.model.variant not in STREAMING_VARIANTS:
             raise ValueError(f"unknown streaming variant {cfg.model.variant!r}; "
                              f"pick from {STREAMING_VARIANTS}")
@@ -71,9 +84,12 @@ class BatchedStreamingServer:
             raise ValueError(
                 f"transfer_dtype must be float32|int16|uint8|adpcm4|adpcm2, got {transfer_dtype!r}")
         if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP.md queue A)")
-        if timeline_cap:
-            raise NotImplementedError("the timeline ring is not ported yet (ROADMAP.md queue A)")
+            raise NotImplementedError(
+                "a device mesh is not ported yet (ROADMAP.md queue A, item 9)")
+        if timeline_cap and timeline_cap < chunk_patches:
+            # one chunk's ring slots must be distinct (masked scatter)
+            raise ValueError(f"timeline_cap {timeline_cap} must be >= chunk_patches "
+                             f"{chunk_patches}")
         self.device = resolve_device(device)
         self.transfer_dtype = transfer_dtype
         self._buf_dtype = _WIRES[transfer_dtype]
@@ -110,16 +126,35 @@ class BatchedStreamingServer:
         self._bufs: List[Optional[np.ndarray]] = [None] * self.S
         self._fed = np.zeros(self.S, bool)
         self.dispatches = 0  # device steps run (ticks and flushes)
-        self.states = [ap.init_stream_state((self.S, cfg.model.n_classes), device=self.device)
-                       for _ in range(n_stream_levels(cfg.model))]
+        n_levels, c = n_stream_levels(cfg.model), cfg.model.n_classes
+        self.states = [ap.init_stream_state((self.S, c), device=self.device)
+                       for _ in range(n_levels)]
+        self.timeline_cap = int(timeline_cap)
+        self.tl = (ap.init_timeline_state(self.S, self.timeline_cap, n_levels, c,
+                                          device=self.device)
+                   if self.timeline_cap else None)
+        # the packed layout: [S * row_wire_bytes wire][S active bytes]
+        units, _ = self._chunk_hop_units()
+        self._itemsize = np.dtype(self._buf_dtype).itemsize
+        row_wire_bytes = units * self._itemsize
+        self._wav_bytes = self.S * row_wire_bytes
+        self.packed_row_bytes = row_wire_bytes + 1
+        self.packed_nbytes = self._wav_bytes + self.S
+        # one row of wire silence as bytes, for the inactive rows of a packed buffer
+        self._blank_row_u8 = np.ascontiguousarray(self._blank_tile()[0]).view(np.uint8)
+        # the packed tick's n_valid, made once: its one upload is the buffer
+        self._n_valid_chunk = torch.full((self.S,), chunk_patches, dtype=torch.int32,
+                                         device=self.device)
 
     @torch.inference_mode()
-    def _step(self, wav: torch.Tensor, active: torch.Tensor, n_valid: torch.Tensor):
-        """wav [S, chunk_samples] in the wire dtype; active [S] bool - fold
-        only these rows; n_valid [S] int - real patches per row (a flush pads
-        the tail; padded patches get gate logits of -inf, which every gate
-        activation maps to 0). On the adpcm wires wav is [S, chunk_wire]
-        uint8 wire bytes."""
+    def _step(self, states, tl, wav: torch.Tensor, active: torch.Tensor,
+              n_valid: torch.Tensor):
+        """One device step from (states, tl) to new (states, tl). wav [S,
+        chunk_samples] in the wire dtype; active [S] bool - fold only these
+        rows; n_valid [S] int - real patches per row (a flush pads the tail;
+        padded patches get gate logits of -inf, which every gate activation
+        maps to 0, and keep their ring slots). On the adpcm wires wav is [S,
+        chunk_wire] uint8 wire bytes."""
         if self._adpcm is not None:
             wav = adpcm_decode(wav, self.chunk_samples, self._adpcm["block"],
                                self._adpcm["bits"])
@@ -133,26 +168,54 @@ class BatchedStreamingServer:
         tmask = torch.arange(p, device=self.device)[None, :] < n_valid[:, None]  # [S, P]
         mask = active[:, None]
         new_states = []
-        for st, (g, c) in zip(self.states, levels):
+        for st, (g, c) in zip(states, levels):
             g = torch.where(tmask[..., None], g, -torch.inf)
             upd = ap.update_stream_state(st, g, c, *self._acts)
             new_states.append(ap.StreamState(*(torch.where(mask, u, o)
                                                for u, o in zip(upd, st))))
-        self.states = new_states
+        if tl is not None:
+            # the ring takes the raw gate logits; padded patches keep their slots
+            g_stack = torch.stack([g for g, _ in levels], dim=2)
+            f_stack = torch.stack([ap.cla_activation(c, self._acts[1]) for _, c in levels],
+                                  dim=2)
+            tl = ap.update_timeline_state(tl, g_stack, f_stack, active, n_valid)
+        return new_states, tl
+
+    def _packed_step(self, states, tl, packed: torch.Tensor):
+        """The regular tick's step from one packed buffer on the device
+        (``put_packed``'s result): states, tl -> new states, tl. A caller
+        that drives it stores the result and marks the active streams fed,
+        as ``tick_packed`` does."""
+        # [S * row_wire_bytes] uint8 -> [S, units] in the wire dtype: a
+        # multi-byte wire is reinterpreted little-endian, as numpy wrote it
+        wav = packed[: self._wav_bytes].view(self.S, -1)
+        if self._itemsize > 1:
+            wav = wav.view(torch.int16 if self._itemsize == 2 else torch.float32)
+        active = packed[self._wav_bytes:] != 0
+        return self._step(states, tl, wav, active, self._n_valid_chunk)
 
     def _dispatch(self, wav: np.ndarray, active: np.ndarray, n_valid: np.ndarray):
         put = [torch.from_numpy(a).to(self.device, non_blocking=True)
                for a in (wav, active, n_valid)]
-        self._step(*put)
+        self.states, self.tl = self._step(self.states, self.tl, *put)
         self.dispatches += 1
 
-    def warmup(self):
+    def warmup(self, packed: bool = False):
         """Run one all-inactive tick and a finalize before serving: builds
         the front-end kernel and warms the library kernels, and leaves every
-        stream state unchanged."""
-        self._dispatch(self._blank_tile(), np.zeros(self.S, bool),
+        stream state unchanged. ``packed=True`` also runs one all-inactive
+        packed tick."""
+        blank = self._blank_tile()
+        self._dispatch(blank, np.zeros(self.S, bool),
                        np.full(self.S, self.chunk_patches, np.int32))
-        self._finalize()
+        if packed:
+            buf = self.packed_buffer()
+            rows, act_bytes = self._packed_views(buf)
+            rows[:] = np.ascontiguousarray(blank).view(np.uint8).reshape(rows.shape)
+            act_bytes[:] = 0
+            self.states, self.tl = self._packed_step(self.states, self.tl,
+                                                     self.put_packed(buf))
+        self._finalize(self.model, self.states)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -174,11 +237,19 @@ class BatchedStreamingServer:
     def _reset_slot(self, sid: int):
         if self._adpcm is not None:
             self._rem[sid] = np.zeros(0, np.int16)
-        # in place: one row of each accumulator back to the empty state
-        for st in self.states:
-            st.num[sid] = 0.0
-            st.den[sid] = 0.0
-            st.m[sid] = -torch.inf
+
+        def reset(t, value):  # a new tensor: snapshots of the old stay intact
+            t = t.clone()
+            t[sid] = value
+            return t
+
+        self.states = [ap.StreamState(reset(st.num, 0.0), reset(st.den, 0.0),
+                                      reset(st.m, -torch.inf)) for st in self.states]
+        if self.tl is not None:
+            # count 0 hides the slot's old ring rows; new writes start at
+            # cursor 0 and replace them before they become readable
+            self.tl = self.tl._replace(cursor=reset(self.tl.cursor, 0),
+                                       count=reset(self.tl.count, 0))
         self._fed[sid] = False
 
     def _check(self, sid: int):
@@ -281,6 +352,53 @@ class BatchedStreamingServer:
             self._bufs[sid] = self._bufs[sid][hw:]
         return wav, active
 
+    def packed_buffer(self) -> np.ndarray:
+        """A new staging buffer in the one-upload layout, flat
+        [packed_nbytes] uint8. On a CUDA device it is a numpy view of a
+        pinned tensor from PyTorch's caching host allocator, so
+        ``put_packed`` copies it asynchronously and the block is reused only
+        after that copy has finished; on the CPU it is plain memory. Pass
+        the buffer to ``put_packed`` as returned, once it is filled."""
+        if self.device.type == "cuda":
+            return torch.empty(self.packed_nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+        return np.empty(self.packed_nbytes, np.uint8)
+
+    def put_packed(self, buf: np.ndarray) -> torch.Tensor:
+        """The one host-to-device copy of a buffer from ``packed_buffer``
+        (on the CPU, no copy)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(buf)
+        pinned = buf.base
+        if not (isinstance(pinned, torch.Tensor) and pinned.is_pinned()
+                and pinned.data_ptr() == buf.ctypes.data and buf.size == self.packed_nbytes):
+            raise ValueError("put_packed takes a buffer from packed_buffer(), as returned")
+        return pinned.to(self.device, non_blocking=True)
+
+    def _packed_views(self, out: np.ndarray):
+        """(wire_rows [S, row_wire_bytes], active_bytes [S]) views into a
+        packed buffer."""
+        return out[: self._wav_bytes].reshape(self.S, -1), out[self._wav_bytes:]
+
+    def gather_ready_packed(self, out: np.ndarray):
+        """``gather_ready`` writing straight into the one-upload layout: fills
+        ``out`` with every row's wire chunk bytes (wire silence for the
+        inactive rows) and the active bytes, and advances the ready buffers.
+        Returns the active bool vector, or None if no stream has a full
+        chunk."""
+        cw, hw = self._chunk_hop_units()
+        active = np.array([b is not None and len(b) >= cw for b in self._bufs])
+        if not active.any():
+            return None
+        rows, act_bytes = self._packed_views(out)
+        for sid in range(self.S):
+            if active[sid]:
+                rows[sid] = np.ascontiguousarray(self._bufs[sid][:cw]).view(np.uint8)
+                self._bufs[sid] = self._bufs[sid][hw:]
+            else:
+                rows[sid] = self._blank_row_u8
+        act_bytes[:] = active
+        return active
+
     def tick(self) -> int:
         """Process one chunk for every stream that has one ready; returns the
         number of streams advanced (0 = nothing ready, no device step)."""
@@ -289,6 +407,18 @@ class BatchedStreamingServer:
             return 0
         wav, active = g
         self._dispatch(wav, active, np.full(self.S, self.chunk_patches, np.int32))
+        self._fed |= active
+        return int(active.sum())
+
+    def tick_packed(self) -> int:
+        """``tick()`` through the one-upload layout: gather into a packed
+        buffer, one host-to-device copy, the packed step."""
+        buf = self.packed_buffer()
+        active = self.gather_ready_packed(buf)
+        if active is None:
+            return 0
+        self.states, self.tl = self._packed_step(self.states, self.tl, self.put_packed(buf))
+        self.dispatches += 1
         self._fed |= active
         return int(active.sum())
 
@@ -337,11 +467,62 @@ class BatchedStreamingServer:
         return True
 
     @torch.inference_mode()
-    def _finalize(self) -> torch.Tensor:
-        return stream_finalize_scores(self.model, self.cfg.model.variant, self.states)
+    def _finalize(self, model, states) -> torch.Tensor:
+        return stream_finalize_scores(model, self.cfg.model.variant, states)
 
     def scores(self, sid: int) -> np.ndarray:
         self._check(sid)
         if not self._fed[sid]:
             raise RuntimeError(f"stream {sid} has no processed audio yet")
-        return self._finalize()[sid].float().cpu().numpy()
+        return self._finalize(self.model, self.states)[sid].float().cpu().numpy()
+
+    # --- weight reload ---
+    def prepare_reload(self, state_dict: Mapping):
+        """Stage new weights for a swap: check keys, shapes and dtypes
+        against the serving model's ``state_dict`` (``ValueError`` on any
+        mismatch; a different architecture needs a new server), then build
+        a second model with them on the device. Returns the staged model
+        for :meth:`commit_reload`."""
+        def layout(sd):
+            return {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
+
+        if layout(state_dict) != layout(self.model.state_dict()):
+            raise ValueError("reload_weights: the new state_dict does not match the serving "
+                             "model (keys, shapes or dtypes); start a new server for a "
+                             "different architecture")
+        return _model_with_weights(self.cfg, state_dict, self.device)
+
+    def commit_reload(self, staged) -> None:
+        """Serve with a model staged by :meth:`prepare_reload`: one attribute
+        store. Open streams keep their accumulators and their ring; chunks
+        folded after it use the new weights."""
+        self.model = staged
+
+    def reload_weights(self, state_dict: Mapping) -> None:
+        """Swap the serving weights while streams stay open."""
+        self.commit_reload(self.prepare_reload(state_dict))
+
+    # --- timeline readout ---
+    def timeline(self, sid: int):
+        """A stream's localization window: the ring's last min(count,
+        timeline_cap) patches' (attention weight, segment prob) per level,
+        weights normalized against the stream's current accumulators
+        (``ops.attention_pool.window_timeline``). Returns ``(start_patch,
+        [(weights [T, C], probs [T, C]) per level])``."""
+        self._check(sid)
+        if not self._fed[sid]:
+            raise RuntimeError(f"stream {sid} has no processed audio yet")
+        return self.timeline_from(self.states, self.tl, sid)
+
+    def timeline_from(self, states, tl, sid: int):
+        """The readout of ``timeline`` from a snapshot of (states, tl)."""
+        return ap.read_timeline(states, tl, sid, self._acts[0])
+
+    def timeline_with_scores_from(self, model, states, tl, sid: int):
+        """``(scores, start_patch, levels)`` from a snapshot of (model,
+        states, tl), ``model`` being the server's ``model`` when the
+        snapshot was taken: the scores ride the timeline's one
+        device-to-host copy."""
+        scores = self._finalize(model, states)[sid]
+        start, levels, scores = ap.read_timeline(states, tl, sid, self._acts[0], extra=scores)
+        return scores, start, levels

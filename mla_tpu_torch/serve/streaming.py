@@ -4,8 +4,9 @@ raw waveform in, clip scores out, any length of audio in O(1) state.
 Each chunk of whole patches runs front-end -> trunk -> per-level (gate,
 cla) logits and folds them into the attention accumulators
 (``ops.attention_pool``); scores can be read at any time by finalizing
-the state, and equal the whole-clip forward. The localization timeline is
-not ported yet (ROADMAP.md queue A).
+the state, and equal the whole-clip forward. With ``timeline_cap`` > 0 the
+tagger also keeps the on-device localization ring
+(``ops.attention_pool.TimelineState``) and ``timeline()`` reads it.
 """
 
 from __future__ import annotations
@@ -99,10 +100,17 @@ class StreamingTagger:
     """
 
     def __init__(self, cfg: Config, state_dict: Mapping, chunk_patches: int = 10,
-                 device=None):
+                 timeline_cap: int = 0, device=None):
+        """``timeline_cap`` > 0 also records the last timeline_cap patches'
+        (gate logits, segment probs) in a ring on the device, read with
+        :meth:`timeline`; 0 disables it."""
         if cfg.model.variant not in STREAMING_VARIANTS:
             raise ValueError(f"unknown streaming variant {cfg.model.variant!r}; "
                              f"pick from {STREAMING_VARIANTS}")
+        self.timeline_cap = int(timeline_cap)
+        if self.timeline_cap and self.timeline_cap < chunk_patches:
+            raise ValueError(f"timeline_cap {timeline_cap} must be >= chunk_patches "
+                             f"{chunk_patches}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = _model_with_weights(cfg, state_dict, self.device)
@@ -118,14 +126,24 @@ class StreamingTagger:
             ap.init_stream_state((1, self.cfg.model.n_classes), device=self.device)
             for _ in range(self._n_levels)
         ]
+        self.tl = (ap.init_timeline_state(1, self.timeline_cap, self._n_levels,
+                                          self.cfg.model.n_classes, device=self.device)
+                   if self.timeline_cap else None)
         self._fed_any = False
 
     @torch.inference_mode()
     def _fold(self, wav: np.ndarray):
+        """Fold one chunk of whole patches (every one of them valid)."""
         x = torch.from_numpy(np.ascontiguousarray(wav[None])).to(self.device)
         levels = self.model.segment_logits(fe.apply_frontend(x, self.cfg.frontend))
         self.states = [ap.update_stream_state(st, g, c, *self._acts)
                        for st, (g, c) in zip(self.states, levels)]
+        if self.tl is not None:
+            g_stack = torch.stack([g for g, _ in levels], dim=2)
+            f_stack = torch.stack([ap.cla_activation(c, self._acts[1]) for _, c in levels], dim=2)
+            self.tl = ap.update_timeline_state(
+                self.tl, g_stack, f_stack, torch.ones(1, dtype=torch.bool, device=self.device),
+                torch.full((1,), g_stack.shape[1], dtype=torch.int32, device=self.device))
         self._fed_any = True
 
     def feed(self, waveform: np.ndarray):
@@ -165,6 +183,14 @@ class StreamingTagger:
         s = self.scores()
         order = np.argsort(-s)[:k]
         return [(labels[i] if labels else int(i), float(s[i])) for i in order]
+
+    def timeline(self):
+        """Localization window over the last ``timeline_cap`` patches:
+        ``(start_patch, [(weights [T, C], probs [T, C]) per level])``, the
+        streaming counterpart of ``AudioTagger.timeline``."""
+        if not self._fed_any:
+            raise RuntimeError("no audio fed yet")
+        return ap.read_timeline(self.states, self.tl, 0, self._acts[0])
 
 
 @torch.inference_mode()

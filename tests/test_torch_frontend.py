@@ -94,15 +94,34 @@ def test_log_mel_spectrogram_matches_jax():
     np.testing.assert_allclose(ours, ref, atol=2e-4)
 
 
-@pytest.mark.parametrize("path", ["xla", "fused_plain"])
+@pytest.mark.parametrize("path", ["xla", "fused_plain", "fft"])
 def test_frontend_matches_golden(path):
     g = np.load("tests/golden/frontend_golden.npz")
     wav = torch.from_numpy(g["wav"])
     if path == "xla":
         ours = fe.waveform_to_patches(wav, FrontendConfig())
+    elif path == "fft":
+        ours = fe.waveform_to_patches(wav, FrontendConfig(), method="fft")
     else:
         ours = ff.fused_log_mel_patches(wav, FrontendConfig(), "highest")
     np.testing.assert_allclose(ours.numpy(), g["patches"], atol=2e-4)
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_fft_log_mel_matches_jax(precision):
+    """torch.fft.rfft of the Hann-windowed frames, |.|, the full filterbank
+    and the log, against JAX's jnp.fft path, at a length that is no whole
+    number of hops. (The mel product takes "highest" under bf16x3; JAX's
+    "default" is f32 on the CPU, where the port rounds to bf16, so it is not
+    compared here.)"""
+    tcfg, jcfg = _cfgs(precision=precision)
+    wav = _wav(11, (2, 16000 * 2 + 321))
+    ours = fe.log_mel_spectrogram(torch.from_numpy(wav), tcfg, method="fft").numpy()
+    ref = np.asarray(jfe.log_mel_spectrogram(jnp.asarray(wav), jcfg, method="fft"))
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, atol=2e-4)
+    with pytest.raises(ValueError, match="unknown stft method"):
+        fe.log_mel_spectrogram(torch.from_numpy(wav), tcfg, method="dct")
 
 
 def test_overlapping_patches_match_jax():

@@ -1,6 +1,7 @@
 """Model zoo of the PyTorch port against the JAX package with the same
-weights: the model golden file, and the CNN-trunk forward and segment
-logits at f32 and bf16."""
+weights: the model golden file, the CNN-trunk forward and segment logits
+at f32 and bf16, CompactCNN's group and no norm, the VGGish trunk, and
+the timeline readout."""
 
 import sys
 
@@ -108,12 +109,100 @@ def test_compact_cnn_pool_options_match_jax(pool, global_pool):
     np.testing.assert_allclose(ours, ref, atol=F32_TOL, rtol=0)
 
 
-def test_unported_options_raise():
-    _, tcfg = configs({"model.trunk": "vggish"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def _flat(variables):
+    from mla_tpu.models.convert import params_to_flat
+
+    flat = params_to_flat(jax.tree.map(np.asarray, dict(variables["params"])), "params/")
+    if "batch_stats" in variables:
+        flat.update(params_to_flat(jax.tree.map(np.asarray, dict(variables["batch_stats"])),
+                                   "batch_stats/"))
+    return flat
+
+
+@pytest.mark.parametrize("norm,dtype,tol", [("group", "float32", 1e-5), ("none", "float32", 1e-5),
+                                            ("group", "bfloat16", BF16_TOL)])
+def test_compact_cnn_norms_match_jax(norm, dtype, tol):
+    """norm="group" (flax GroupNorm: min(32, C) groups, eps 1e-6, fast
+    variance in f32; 64 channels make groups of two) and norm="none" (the
+    conv's bias), through the flat format, the scales and biases moved off
+    their init values."""
+    from mla_tpu.models.convert import flat_to_params
+    from mla_tpu_torch.models.convert import flat_to_state_dict, state_dict_to_flat
+
+    x = _patches(3, b=1, t=3)[0]  # [3, 96, 64]
+    chans = (8, 64)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jm = JaxCompactCNN(chans, 1, 6, norm=norm, dtype=jdt)
+    flat = _flat(jm.init(jax.random.key(1), jnp.asarray(x)))
+    rng = np.random.default_rng(1)
+    for k, a in flat.items():
+        if k.endswith(("/scale", "/bias")):
+            flat[k] = (a + rng.uniform(-0.5, 0.5, a.shape)).astype(np.float32)
+    assert any("/gn1_0/" in k for k in flat) == (norm == "group")
+    ref = np.asarray(jm.apply({"params": flat_to_params(flat)["params"]}, jnp.asarray(x)),
+                     np.float32)
+    model = CompactCNN(chans, 1, 6, norm=norm, dtype=tdt)
+    sd = flat_to_state_dict(flat, model)
+    model.load_state_dict(sd)
+    assert state_dict_to_flat(sd).keys() == flat.keys()  # scales export as "scale"
+    with torch.no_grad():
+        ours = model.eval()(torch.from_numpy(x)).float().numpy()
+    np.testing.assert_allclose(ours, ref, atol=tol, rtol=0)
+
+
+def test_vggish_model_matches_jax():
+    """An AudioTagger on the VGGish trunk (conv 64 / 128 / 256 x 2 / 512 x 2,
+    FC 4096 x 2) at f32: the flat keys are JAX's, fc1_1's [12288, 4096]
+    kernel crosses by the plain transpose because the port flattens NHWC,
+    and the forward and the segment logits agree."""
+    jcfg, tcfg = configs({"model.trunk": "vggish", "model.n_blocks": 1})
+    variables, flat = jax_weights(jcfg.model, seed=5)
+    assert {k.split("/")[2] for k in flat if k.startswith("params/trunk_module/")} == {
+        "conv1_1", "conv2_1", "conv3_1", "conv3_2", "conv4_1", "conv4_2", "fc1_1", "fc1_2",
+        "fc2"}
+    model = torch_model(tcfg.model, flat)
+    x = _patches(4, b=1, t=2)
+    jmodel = jax_build_model(jcfg.model)
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    ref_emb = np.asarray(jmodel.apply(variables, jnp.asarray(x), method="embed"))
+    with torch.no_grad():
+        ours = model(torch.from_numpy(x)).numpy()
+        emb = model.embed(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(emb, ref_emb, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_timeline_matches_jax(variant):
+    """AudioTagger.timeline: per level or head, (weights, seg_probs) within
+    the f32 budget of JAX's, and sum_t w * f the pooled vector that the
+    variant's tail turns into the forward's probabilities."""
+    jmodel, variables, model = _jax_and_port(variant, "float32", seed=6)
+    x = _patches(5)
+    ref = jmodel.apply(variables, jnp.asarray(x), method="timeline")
+    with torch.no_grad():
+        ours = model.timeline(torch.from_numpy(x))
+        probs = model(torch.from_numpy(x))
+        pooled = [(w * f).sum(dim=1) for w, f in ours]
+        if variant == "multi_level_attention":
+            np.testing.assert_allclose(model.finalize_multi_level(pooled).numpy(),
+                                       probs.numpy(), atol=1e-5, rtol=0)
+        elif variant == "multi_attention":
+            np.testing.assert_allclose(model.finalize_multi_head(pooled).numpy(),
+                                       probs.numpy(), atol=1e-5, rtol=0)
+        else:
+            np.testing.assert_allclose(pooled[0].numpy(), probs.numpy(), atol=1e-5, rtol=0)
+    assert len(ours) == len(ref)
+    for (w, f), (rw, rf) in zip(ours, ref):
+        np.testing.assert_allclose(w.numpy(), np.asarray(rw), atol=F32_TOL, rtol=0)
+        np.testing.assert_allclose(f.numpy(), np.asarray(rf), atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("override,what", [({"model.remat_trunk": True}, "remat")])
+def test_unported_options_raise(override, what):
+    _, tcfg = configs(override)
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
         build_model(tcfg.model, device="cpu")
-    with pytest.raises(NotImplementedError):
-        CompactCNN(norm="group")
 
 
 def test_build_model_device_rule():

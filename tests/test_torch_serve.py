@@ -1,7 +1,9 @@
 """Serving slice of the PyTorch port: BatchedStreamingServer against the
 JAX server on identical bytes (fused front-end, f32 compute, same weights)
 on every wire, the adpcm wires' pre-encoded feeds and remainders included,
-StreamingTagger against tag_clip, and the device rule of the entry points."""
+the packed one-upload tick against the three-upload tick and its byte
+layout against JAX's, StreamingTagger against tag_clip, and the device rule
+of the entry points."""
 
 import sys
 
@@ -12,6 +14,8 @@ import dataclasses  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
+
+import jax.numpy as jnp  # noqa: E402
 
 from mla_tpu.serve.server import BatchedStreamingServer as JaxServer  # noqa: E402
 from mla_tpu_torch.data import adpcm, audio_io  # noqa: E402
@@ -74,6 +78,95 @@ def test_server_matches_jax_server(setup, wire):
     np.testing.assert_allclose(ours, ref, atol=SCORE_TOL, rtol=0)
 
 
+WIRES = ["float32", "int16", "uint8", "adpcm4", "adpcm2"]
+
+
+def _wire_rows(srv, rng):
+    """Three distinct rows of one chunk in the server's wire format."""
+    units, _ = srv._chunk_hop_units()
+    if srv.transfer_dtype == "float32":
+        return (rng.standard_normal((3, units)) * 0.2).astype(np.float32)
+    if srv.transfer_dtype == "int16":
+        return rng.integers(-30000, 30000, (3, units)).astype(np.int16)
+    if srv.transfer_dtype == "uint8":
+        return rng.integers(0, 256, (3, units)).astype(np.uint8)
+    one = srv._adpcm["encode"]((rng.standard_normal(srv.chunk_samples) * 8000).astype(np.int16),
+                               block=srv._adpcm["block"])
+    return np.stack([one, one[::-1], one ^ 0x5A]).astype(np.uint8)
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_packed_tick_equals_three_upload_tick(setup, wire):
+    """The one-upload step ([S * row bytes wire][S active] uint8, sliced and
+    reinterpreted little-endian on the device) gives the states and ring of
+    the three-upload step bit for bit, one row inactive."""
+    _, tcfg, _, state_dict = setup
+    srv = BatchedStreamingServer(tcfg, state_dict, max_streams=3, chunk_patches=2,
+                                 transfer_dtype=wire, timeline_cap=4, device="cpu")
+    rows = _wire_rows(srv, np.random.default_rng(12))
+    active = np.array([True, False, True])
+    states, tl = srv._step(srv.states, srv.tl, torch.from_numpy(rows), torch.from_numpy(active),
+                           torch.full((3,), srv.chunk_patches, dtype=torch.int32))
+    packed = srv.packed_buffer()
+    assert packed.shape == (srv.packed_nbytes,) == (3 * rows[0].nbytes + 3,)
+    wire_rows, act_bytes = srv._packed_views(packed)
+    wire_rows[:] = rows.view(np.uint8).reshape(3, -1)
+    act_bytes[:] = active
+    p_states, p_tl = srv._packed_step(srv.states, srv.tl, srv.put_packed(packed))
+    for a, b in zip([t for st in states for t in st] + list(tl),
+                    [t for st in p_states for t in st] + list(p_tl)):
+        assert torch.equal(a, b)
+    assert int(tl.count[1]) == 0 and int(tl.count[0]) == srv.chunk_patches
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_gather_ready_packed_bytes_equal_jax(setup, wire):
+    """The packed layout is the JAX server's byte for byte (the contract a
+    front's own gather writes), inactive rows wire silence over stale bytes,
+    and the buffers advance as gather_ready advances them."""
+    jcfg, tcfg, variables, state_dict = setup
+    kw = dict(max_streams=3, chunk_patches=2, transfer_dtype=wire)
+    ours, plain = (BatchedStreamingServer(tcfg, state_dict, device="cpu", **kw)
+                   for _ in range(2))
+    ref = JaxServer(jcfg, variables, **kw)
+    audio = (np.random.default_rng(13).standard_normal(ours.chunk_samples + 777) * 0.2
+             ).astype(np.float32)
+    for srv in (ours, plain, ref):
+        for sid, gain in zip((srv.open(), srv.open(), srv.open()), (1.0, 0.0, 0.5)):
+            if gain:
+                srv.feed(sid, audio * gain)
+    assert ours.packed_nbytes == ref.packed_nbytes
+    assert ours.packed_row_bytes == ref.packed_row_bytes
+    out, ref_out = (np.full(ours.packed_nbytes, 0xAB, np.uint8) for _ in range(2))
+    active = ours.gather_ready_packed(out)
+    np.testing.assert_array_equal(active, ref.gather_ready_packed(ref_out))
+    np.testing.assert_array_equal(out, ref_out)
+    wav, plain_active = plain.gather_ready()
+    np.testing.assert_array_equal(active, plain_active)
+    np.testing.assert_array_equal(out[:wav.nbytes], wav.view(np.uint8).ravel())
+    for sid in range(3):
+        np.testing.assert_array_equal(ours._bufs[sid], plain._bufs[sid])
+    assert ours.gather_ready_packed(out) is None
+
+
+@pytest.mark.parametrize("wire", ["int16", "adpcm4"])
+def test_tick_packed_serves_like_tick(setup, wire):
+    """A whole session through tick_packed gives the scores of the same
+    session through tick; warmup(packed=True) changes no state."""
+    _, tcfg, _, state_dict = setup
+    audio = (np.random.default_rng(14).standard_normal(16000 * 12) * 0.1).astype(np.float32)
+    kw = dict(max_streams=2, chunk_patches=2, transfer_dtype=wire, device="cpu")
+    srv = BatchedStreamingServer(tcfg, state_dict, **kw)
+    before = [t.clone() for st in srv.states for t in st]
+    srv.warmup(packed=True)
+    assert all(torch.equal(x, y) for x, y in zip(before, [t for st in srv.states for t in st]))
+    packed = BatchedStreamingServer(tcfg, state_dict, **kw)
+    packed.tick = packed.tick_packed  # the session's ticks and drains go through it
+    d0 = srv.dispatches
+    np.testing.assert_array_equal(_session(packed, audio), _session(srv, audio))
+    assert packed.dispatches == srv.dispatches - d0 > 0
+
+
 def test_server_bookkeeping(setup):
     _, tcfg, _, state_dict = setup
     srv = BatchedStreamingServer(tcfg, state_dict, max_streams=2, chunk_patches=2,
@@ -97,7 +190,7 @@ def test_server_bookkeeping(setup):
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    ({"timeline_cap": 8}, NotImplementedError),
+    ({"timeline_cap": 3}, ValueError),  # below chunk_patches
     ({"mesh": object()}, NotImplementedError),
     ({"transfer_dtype": "bfloat16"}, ValueError),
 ])
@@ -216,3 +309,4 @@ def test_wire_codecs_equal_reference():
     # the device-side decode uses torch's expm1: within one f32 ulp of numpy's
     np.testing.assert_allclose(audio_io.mulaw_decode(torch.from_numpy(codes)).numpy(),
                                ref.mulaw_decode(codes), rtol=2.4e-7, atol=0)
+
