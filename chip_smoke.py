@@ -50,6 +50,20 @@ printing its last line:
      and decode launches equal to device steps on each of these paths; then
      one f32 forward each of a VGGish-trunk model and of CompactCNN with
      norm="group" and norm="none", on the card and on the CPU (TF32 off);
+  5c. the serving fronts on the same preset and weights: the stdlib HTTP
+     front (int16 wire, ring on) and the native C++ front (native/
+     serve_front.cpp, built by g++ beside the kernels in phase 2; adpcm4
+     wire), each under eight client threads posting their streams in 1 s
+     sync bodies through the port's TagClient (a /v1/tag one-shot rides
+     along on the stdlib front): every request 2xx, scores against a
+     direct-drive server fed the same bytes (1e-3), front-end and decode
+     launches equal to device steps, latency p50 / p99, audio seconds per
+     wall second, ticks and streams per tick, the tick thread's host ms per
+     step, and a profiled soak of ten ticks; a reload mid-soak on the native
+     front (no failed request, a stream opened after it against a fresh
+     server on the new weights, the longest gap between ticks); then
+     `python -m mla_tpu_torch serve --native` in a subprocess, tagged by
+     `python -m mla_tpu_torch tag`, against a direct server;
   6. the training path at full width: fit() on the us8k_fused_frontend
      preset as shipped (front-end kernel at "highest", batch 64 of 4 s
      clips), cut only in num_steps / eval_every / checkpoint_every; finite
@@ -82,7 +96,8 @@ printing its last line:
      idle share, host-to-device copies per tick) of ten ticks of each kind
      and five train steps.
 Launch counts are set to 0 just before each path (probe, serving on each
-wire, the ring, packed and reload serving paths, training, adpcm4-staged training, the flagship forward and train
+wire, the ring, packed and reload serving paths, the two fronts' soaks and the
+reload soak, training, adpcm4-staged training, the flagship forward and train
 steps) is driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
@@ -173,6 +188,18 @@ def _host_median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _device_busy_us(device_events) -> float:
+    """The union of the device intervals of a profiler's device records, µs."""
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in device_events):
+        if cur_e is None or s > cur_e:
+            busy_us += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy_us + (0 if cur_e is None else cur_e - cur_s)
+
+
 def _profile(fn, n: int):
     """torch.profiler over n calls of fn, after one call in the profiler's
     warm-up step, whose trace is dropped, and a pause: device records stamped
@@ -204,17 +231,9 @@ def _profile(fn, n: int):
         if "memcpy" in ev.name.lower():
             copies[ev.name] = copies.get(ev.name, 0) + 1
     htod = sum(c for k, c in copies.items() if "HtoD" in k) / n
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in device]
-    if not spans:
+    if not device:
         return host_ms, None, [], htod, copies
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(spans):  # union of the device intervals
-        if cur_e is None or s > cur_e:
-            busy_us += 0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
+    busy_us = _device_busy_us(device)
     # device time by the operator that launched it (kernel names are templates)
     ops = [(ev.key, ev.self_device_time_total) for ev in prof.key_averages()
            if ev.device_type == torch.autograd.DeviceType.CPU and ev.self_device_time_total > 0]
@@ -340,6 +359,500 @@ def _drive(srv, streams, schedule, packed: bool = False):
     return np.stack(scores)
 
 
+FRONT_POST_S = 1  # seconds of audio per sync POST in the fronts phase
+FRONT_SCORE_BUDGET = 1e-3  # scores through a front against direct drive of the same bytes
+FRONT_TIMEOUT_S = 60  # every client request's timeout in the fronts phase
+FRONT_PROFILE_TICKS = 10  # ticks in each front's profiled soak
+FRONT_REPEATS = 2  # measured soaks per front from client threads, and from the client process
+CLI_TIMEOUT_S = 300  # the serve subprocess's start, and the tag subprocess
+
+
+class _TimedLock:
+    """A front's ``dev`` lock that records how long each acquire waited and
+    on which thread: the tick thread's, or a handler's (open, flush,
+    snapshot, reload commit) waiting for a step."""
+
+    def __init__(self, lock):
+        import threading
+
+        self.lock, self.waits, self._thread_name = lock, [], threading.current_thread
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        self.lock.acquire()
+        self.waits.append((self._thread_name().name, (time.perf_counter() - t0) * 1e3))
+        return self
+
+    def __exit__(self, *exc):
+        self.lock.release()
+
+
+def _lock_waits(waits) -> dict:
+    """Handler threads' waits for ``dev`` (ms): count, median, p99, max."""
+    ms = [w for name, w in waits if "tick" not in name]
+    if not ms:
+        return {"n": 0}
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": max(ms)}
+
+
+def _step_stamps(srv) -> list:
+    """Wrap the server's packed step (the front's tick thread calls it) to
+    record each call's host-clock (start, end); returns the list it fills."""
+    stamps, step = [], srv._packed_step
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        stamps.append((t0, time.perf_counter()))
+        return out
+
+    timed.__wrapped__ = step
+    srv._packed_step = timed
+    return stamps
+
+
+def _wire_bodies(client_mod, wire, audio):
+    """One stream's audio as the client sends it: 1 s bodies in the wire,
+    then the final partial block (adpcm), encoded by the port's client."""
+    enc = client_mod._WireEncoder(wire)
+    step = FRONT_POST_S * 16000
+    bodies = [enc.encode(audio[lo:lo + step]) for lo in range(0, len(audio), step)]
+    return [b for b in bodies + [enc.encode(np.zeros(0, np.int16), final=True)] if b]
+
+
+def _run_clients(fn, n, timeout=FRONT_TIMEOUT_S * 4):
+    """fn(i) on n threads; raises with the first error; every thread joined."""
+    import threading
+
+    errs = []
+
+    def wrap(i):
+        try:
+            fn(i)
+        except Exception as e:  # re-raised below, on the calling thread
+            errs.append((i, e))
+
+    ts = [threading.Thread(target=wrap, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    if any(t.is_alive() for t in ts):
+        raise RuntimeError("fronts: a client thread did not finish")
+    if errs:
+        raise RuntimeError(f"fronts: client {errs[0][0]} failed: {errs[0][1]!r}") from errs[0][1]
+
+
+def _soak(client_mod, base, wire, bodies, names, on_first_close=None, timeline=False):
+    """One client thread per stream: open, post its bodies (sync, timed), flush,
+    read all scores (and the timeline), close. ``on_first_close(client)``
+    runs on its own thread once the first stream has closed (a slot is
+    free). Returns (per-stream score vectors, latencies ms, wall s, extra)."""
+    import threading
+
+    n = len(bodies)
+    lat = [[] for _ in range(n)]
+    scores = [None] * n
+    closed = threading.Event()
+    extra = {}
+
+    def stream(i):
+        c = client_mod.TagClient(base, timeout=FRONT_TIMEOUT_S)
+        try:
+            with c.stream(wire=wire) as s:
+                for body in bodies[i]:
+                    t0 = time.perf_counter()
+                    s.feed_wire(body)
+                    lat[i].append((time.perf_counter() - t0) * 1e3)
+                s.flush()
+                top = s.scores(top_k=len(names))
+                if timeline:
+                    extra.setdefault("timelines", {})[i] = s.timeline(top_k=5)
+            v = np.zeros(len(names), np.float32)
+            for label, prob in top:
+                v[names.index(label)] = prob
+            scores[i] = v
+        finally:
+            c.close()
+            closed.set()
+
+    side = []
+    if on_first_close is not None:
+        def ride():
+            if not closed.wait(FRONT_TIMEOUT_S * 4):
+                raise RuntimeError("no stream closed")
+            c = client_mod.TagClient(base, timeout=FRONT_TIMEOUT_S)
+            try:
+                extra["side"] = on_first_close(c)
+            finally:
+                c.close()
+        side = [ride]
+    t0 = time.perf_counter()
+    _run_clients(lambda i: stream(i) if i < n else side[0](), n + len(side))
+    wall = time.perf_counter() - t0
+    return scores, [x for li in lat for x in li], wall, extra
+
+
+def _remote_soak(base, wire, bodies, names):
+    """``_soak`` in a client process of its own (a spawned worker), so the
+    server's process runs only the front and the clients' Python competes
+    with it for cores, not for its interpreter lock."""
+    from mla_tpu_torch.serve import client as client_mod
+
+    return _soak(client_mod, base, wire, bodies, names)
+
+
+def _direct_scores(make_server, wire, bodies, names):
+    """Direct drive: a BatchedStreamingServer fed each stream's exact bytes,
+    drained with ticks, flushed; returns the score vectors."""
+    d = make_server()
+    sids = [d.open() for _ in bodies]
+    for sid, bs in zip(sids, bodies):
+        for b in bs:
+            if wire == "int16":
+                d.feed(sid, np.frombuffer(b, "<i2"))
+            else:
+                d.feed(sid, np.frombuffer(b, np.uint8), wire=True)
+    while d.tick_packed():
+        pass
+    for sid in sids:
+        d.flush(sid)
+    out = [d.scores(sid) for sid in sids]
+    for sid in sids:
+        d.close(sid)
+    return out
+
+
+def _profiled_soak(client_mod, base, wire, bodies, ticks_fn, tag):
+    """Eight client threads post 1 s bodies round their streams until the
+    front has ticked FRONT_PROFILE_TICKS more times, under torch.profiler:
+    (ticks, device busy ms per tick, idle share of the window)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    stop = threading.Event()
+
+    def stream(i):
+        c = client_mod.TagClient(base, timeout=FRONT_TIMEOUT_S)
+        try:
+            with c.stream(wire=wire) as s:
+                k = 0
+                while not stop.is_set():
+                    s.feed_wire(bodies[i][k % (len(bodies[i]) - 1)])  # whole bodies only
+                    k += 1
+        finally:
+            c.close()
+
+    t_before = ticks_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        waiter = threading.Thread(target=lambda: _run_clients(stream, len(bodies)))
+        waiter.start()
+        deadline = time.monotonic() + FRONT_TIMEOUT_S
+        while ticks_fn() - t_before < FRONT_PROFILE_TICKS and time.monotonic() < deadline:
+            time.sleep(0.002)
+        stop.set()
+        waiter.join(timeout=FRONT_TIMEOUT_S * 4)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ticks = ticks_fn() - t_before
+    if waiter.is_alive() or ticks < FRONT_PROFILE_TICKS:
+        raise RuntimeError(f"fronts profile: {ticks} ticks in {wall_ms:.1f} ms")
+    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        print(f"fronts profile: device time not measured (the profiler saw no device "
+              f"activity) {tag}")
+        return {"ticks": ticks, "wall_ms": wall_ms, "device_busy_ms_per_tick": None,
+                "idle_share": None}
+    busy_ms = _device_busy_us(device) / 1e3
+    return {"ticks": ticks, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_ms_per_tick": busy_ms / ticks, "idle_share": 1 - busy_ms / wall_ms}
+
+
+def _fronts(scfg, state_dict, state_dict2, streams, zero_counts, check_launches, tag):
+    """The fronts phase: the stdlib HTTP front (int16, ring on) and the
+    native C++ front (adpcm4) at full width under eight client threads,
+    scores held against direct drive of the same bytes, launches against
+    device steps; a reload mid-soak on the native front; then the `serve`
+    and `tag` verbs in subprocesses. Returns (record, {path: launches})."""
+    from mla_tpu_torch.data.audio_io import write_wav
+    from mla_tpu_torch.data.labels import labels_for
+    from mla_tpu_torch.serve import client as client_mod
+    from mla_tpu_torch.serve.http import create_server
+    from mla_tpu_torch.serve.native_front import create_native_server
+    from mla_tpu_torch.serve.server import BatchedStreamingServer
+
+    import threading
+
+    names = labels_for(scfg.data.dataset, scfg.model.n_classes)
+    rec, paths = {}, {}
+    kw = dict(port=0, max_streams=8, chunk_patches=5)
+    audio_s = sum(len(s) for s in streams) / 16000
+
+    def summarize(front, run, direct):
+        err = max(float(np.abs(a - b).max()) for a, b in zip(run["scores"], direct))
+        lat, wall, ticks, step_ms = run["lat"], run["wall"], run["ticks"], run["step_ms"]
+        r = {"clients": run["where"], "max_abs_err_vs_direct": err, "requests": len(lat),
+             "latency_p50_ms": float(np.percentile(lat, 50)),
+             "latency_p99_ms": float(np.percentile(lat, 99)),
+             "audio_s_per_wall_s": audio_s / wall, "wall_s": wall, "ticks": ticks,
+             "streams_per_tick": run["ticked"] / ticks,
+             "step_host_ms_mean": statistics.mean(step_ms),
+             "step_host_ms_median": statistics.median(step_ms)}
+        print(f"fronts, {front}, clients in {run['where']}: {len(lat)} sync POSTs of "
+              f"{FRONT_POST_S} s, all 2xx; latency p50 {r['latency_p50_ms']:.4f} ms, p99 "
+              f"{r['latency_p99_ms']:.4f} ms (host clock); {audio_s:.1f} s of audio in "
+              f"{wall:.4f} s = {r['audio_s_per_wall_s']:.2f} audio s per wall s; {ticks} ticks, "
+              f"{r['streams_per_tick']:.4f} streams per tick; the tick thread's _packed_step "
+              f"host ms mean {r['step_host_ms_mean']:.4f}, median {r['step_host_ms_median']:.4f};"
+              f" scores against direct drive of the same bytes max |diff| {err:.3e} (budget "
+              f"{FRONT_SCORE_BUDGET:g}) {tag}")
+        if err > FRONT_SCORE_BUDGET or not all(np.isfinite(v).all() for v in run["scores"]):
+            raise RuntimeError(f"fronts, {front}: scores against direct drive {err}")
+        return r
+
+    def measure(base, wire, bodies, server, counters, first_run):
+        """FRONT_REPEATS soaks from client threads in this process (the
+        first with ``first_run``'s extras), then FRONT_REPEATS from the
+        client process; each with its ticks and the tick thread's steps."""
+        stamps = _step_stamps(server)
+        runs = []
+        for where in ("threads", "process"):
+            for _ in range(FRONT_REPEATS):
+                stamps.clear()
+                t0, ts0 = counters()
+                if where == "threads":
+                    scores, lat, wall, extra = _soak(client_mod, base, wire, bodies, names,
+                                                     **(first_run if not runs else {}))
+                else:
+                    scores, lat, wall, extra = pool.apply_async(
+                        _remote_soak, (base, wire, bodies, names)).get(FRONT_TIMEOUT_S * 4)
+                t1, ts1 = counters()
+                runs.append({"where": where, "scores": scores, "lat": lat, "wall": wall,
+                             "extra": extra, "ticks": t1 - t0, "ticked": ts1 - ts0,
+                             "step_ms": [(e - s0) * 1e3 for s0, e in stamps]})
+        server._packed_step = server._packed_step.__wrapped__
+        return runs
+
+    # the clients of the "process" soaks: one spawned worker for both fronts
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        # the stdlib front, int16 wire, the ring on; one /v1/tag rides along
+        bodies = [_wire_bodies(client_mod, "int16", s) for s in streams]
+        srv = create_server(scfg, state_dict, transfer_dtype="int16",
+                            timeline_cap=TIMELINE_CAP, **kw)
+        server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        server_thread.start()
+        base = "http://%s:%d" % srv.server_address[:2]
+        st = srv.state
+        st.ticker.dev = dev = _TimedLock(st.ticker.dev)
+        try:
+            zero_counts()
+            d0 = st.server.dispatches
+            one_shot_audio = streams[0][:10 * 16000]
+            runs = measure(base, "int16", bodies, st.server,
+                           lambda: (st.ticker.ticks, st.ticker.ticked_streams),
+                           dict(timeline=True, on_first_close=lambda c: c.tag(
+                               one_shot_audio, top_k=5, wire="int16")))
+            torch.cuda.synchronize()
+            paths["fronts_stdlib_int16"] = check_launches(
+                "fronts, stdlib front, int16", st.server.dispatches - d0, False)
+            extra = runs[0]["extra"]
+            if len(extra.get("side", [])) != 5 or len(extra["timelines"]) != len(streams) \
+                    or any(not 0 < len(t["probs"]) <= TIMELINE_CAP
+                           for t in extra["timelines"].values()):
+                raise RuntimeError(f"fronts, stdlib: one-shot {extra.get('side')} or timelines")
+            direct = _direct_scores(lambda: BatchedStreamingServer(
+                scfg, state_dict, max_streams=8, chunk_patches=5, transfer_dtype="int16",
+                timeline_cap=TIMELINE_CAP), "int16", bodies, names)
+            rec["stdlib_int16"] = {
+                "runs": [summarize("stdlib front, int16, ring 64", r, direct) for r in runs],
+                "one_shot_top": extra["side"], "dev_lock_waits": _lock_waits(dev.waits),
+                **paths["fronts_stdlib_int16"]}
+            print(f"fronts, stdlib front: handler threads' waits for the dev lock over the soaks "
+                  f"{rec['stdlib_int16']['dev_lock_waits']} {tag}")
+            rec["stdlib_int16"]["profile"] = prof = _profiled_soak(
+                client_mod, base, "int16", bodies, lambda: st.ticker.ticks, tag)
+            print(f"fronts, stdlib front, int16: profiled soak {prof} {tag}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            server_thread.join(timeout=30)
+
+        # the native front, adpcm4 wire: the C++ fast path, the decode on the card
+        bodies = [_wire_bodies(client_mod, "adpcm4", s) for s in streams]
+        nsrv = create_native_server(scfg, state_dict, transfer_dtype="adpcm4",
+                                    reload_fn=lambda: (state_dict2, {"weights": "seed 1"}),
+                                    **kw)
+        base = "http://%s:%d" % nsrv.server_address
+        nsrv.dev = dev = _TimedLock(nsrv.dev)
+        try:
+            zero_counts()
+            d0 = nsrv.srv.dispatches
+            runs = measure(base, "adpcm4", bodies, nsrv.srv,
+                           lambda: (nsrv.ticker.ticks, nsrv.ticker.ticked_streams), {})
+            torch.cuda.synchronize()
+            paths["fronts_native_adpcm4"] = check_launches(
+                "fronts, native front, adpcm4", nsrv.srv.dispatches - d0, True)
+
+            def direct_adpcm4(sd):
+                return lambda: BatchedStreamingServer(scfg, sd, max_streams=8,
+                                                      chunk_patches=5, transfer_dtype="adpcm4")
+
+            direct = _direct_scores(direct_adpcm4(state_dict), "adpcm4", bodies, names)
+            rec["native_adpcm4"] = {
+                "runs": [summarize("native front, adpcm4", r, direct) for r in runs],
+                "dev_lock_waits": _lock_waits(dev.waits), **paths["fronts_native_adpcm4"]}
+            print(f"fronts, native front: worker threads' waits for the dev lock over the soaks "
+                  f"{rec['native_adpcm4']['dev_lock_waits']} {tag}")
+            dev.waits.clear()
+            rec["native_adpcm4"]["profile"] = prof = _profiled_soak(
+                client_mod, base, "adpcm4", bodies, lambda: nsrv.ticker.ticks, tag)
+            print(f"fronts, native front, adpcm4: profiled soak {prof} {tag}")
+
+            # a reload mid-soak: six streams keep posting; a stream opened after
+            # the reload is held against a fresh server on the new weights
+            soak_bodies = bodies[:6]
+            stamps = _step_stamps(nsrv.srv)
+            zero_counts()
+            d0 = nsrv.srv.dispatches
+            posted = [0]
+            reload_out = {}
+
+            def reload_then_stream(c):
+                deadline = time.monotonic() + FRONT_TIMEOUT_S
+                while posted[0] < 6 * 8 and time.monotonic() < deadline:  # ~a third of the posts
+                    time.sleep(0.001)
+                t_a = time.perf_counter()
+                reload_out["reply"] = c.reload()
+                t_b = time.perf_counter()
+                reload_out["window"] = (t_a, t_b)
+                try:
+                    with c.stream(wire="adpcm4") as s:
+                        for body in bodies[2]:
+                            s.feed_wire(body)
+                        s.flush()
+                        top = s.scores(top_k=len(names))
+                finally:
+                    c.close()
+                v = np.zeros(len(names), np.float32)
+                for label, prob in top:
+                    v[names.index(label)] = prob
+                return v
+
+            def soak_stream(i):
+                if i == 6:
+                    reload_out["after"] = reload_then_stream(client_mod.TagClient(
+                        base, timeout=FRONT_TIMEOUT_S))
+                    return
+                c = client_mod.TagClient(base, timeout=FRONT_TIMEOUT_S)
+                try:
+                    with c.stream(wire="adpcm4") as s:
+                        for body in soak_bodies[i]:
+                            s.feed_wire(body)
+                            posted[0] += 1
+                        s.flush()
+                        s.scores()
+                finally:
+                    c.close()
+
+            _run_clients(soak_stream, 7)
+            torch.cuda.synchronize()
+            paths["fronts_native_reload_adpcm4"] = check_launches(
+                "fronts, native front, reload soak, adpcm4", nsrv.srv.dispatches - d0, True)
+            fresh = _direct_scores(direct_adpcm4(state_dict2), "adpcm4", [bodies[2]], names)[0]
+            reload_err = float(np.abs(reload_out["after"] - fresh).max())
+            old_err = float(np.abs(reload_out["after"] - direct[2]).max())
+            t_a, t_b = reload_out["window"]
+            starts = [s0 for s0, _ in stamps]
+            gaps = [(b - a, a, b) for a, b in zip(starts, starts[1:])]
+            around = [g for g, a, b in gaps if b >= t_a and a <= t_b + 0.05]
+            elsewhere = [g for g, a, b in gaps if not (b >= t_a and a <= t_b + 0.05)]
+            rec["native_reload"] = r = {
+                "reply": reload_out["reply"], "reload_request_ms": (t_b - t_a) * 1e3,
+                "max_abs_err_vs_fresh": reload_err, "max_abs_err_vs_old_weights": old_err,
+                "ticks": len(stamps),
+                "max_tick_gap_around_reload_ms": max(around) * 1e3 if around else None,
+                "max_tick_gap_elsewhere_ms": max(elsewhere) * 1e3 if elsewhere else None,
+                "dev_lock_waits": _lock_waits(dev.waits),
+                "median_tick_gap_ms": (statistics.median(g for g, _, _ in gaps) * 1e3
+                                       if gaps else None),
+                **paths["fronts_native_reload_adpcm4"]}
+            print(f"fronts, native front, reload mid-soak: POST /v1/reload "
+                  f"{r['reload_request_ms']:.4f} ms, reply {r['reply']}; every request 2xx; "
+                  f"longest gap between tick starts around the reload "
+                  f"{r['max_tick_gap_around_reload_ms']} ms, elsewhere in the soak "
+                  f"{r['max_tick_gap_elsewhere_ms']} ms, median {r['median_tick_gap_ms']} ms "
+                  f"({r['ticks']} ticks); a stream opened after it against a fresh server on "
+                  f"the new weights max |diff| {reload_err:.3e} (budget "
+                  f"{FRONT_SCORE_BUDGET:g}), against the old weights' scores {old_err:.3e}; "
+                  f"worker threads' waits for the dev lock {r['dev_lock_waits']} {tag}")
+            if reload_out["reply"] != {"reloaded": True, "weights": "seed 1"} \
+                    or reload_err > FRONT_SCORE_BUDGET or old_err < 10 * FRONT_SCORE_BUDGET:
+                raise RuntimeError(f"fronts, reload: {r}")
+        finally:
+            nsrv.server_close()
+    finally:
+        pool.terminate()
+        pool.join()
+
+    # the entry points: `serve --native` in a subprocess, tagged by `tag`
+    clip = os.path.join(ROOT, "build", "fronts_clip.wav")
+    os.makedirs(os.path.dirname(clip), exist_ok=True)
+    write_wav(clip, streams[1][:10 * 16000], 16000)
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    err_path = os.path.join(ROOT, "build", "fronts_serve.err")
+    t_cli = time.perf_counter()
+    with open(err_path, "w") as err_fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mla_tpu_torch", "serve", "--native", "--transfer_dtype",
+             "adpcm4", "--checkpoint", "random", "--port", "0", "--set", "frontend.impl=pallas"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err_fh, text=True)
+        try:
+            import select
+
+            ready, _, _ = select.select([proc.stdout], [], [], CLI_TIMEOUT_S)
+            line = proc.stdout.readline() if ready else ""
+            if not line.startswith("serving multi_level_attention on http://"):
+                raise RuntimeError(f"serve did not start: {line!r}; stderr "
+                                   f"{open(err_path).read()[-2000:]}")
+            serve_s = time.perf_counter() - t_cli
+            url = line.split(" on ")[1].split("/v1")[0]
+            out = subprocess.run([sys.executable, "-m", "mla_tpu_torch", "tag", "--url", url,
+                                  "--wav", clip], cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=CLI_TIMEOUT_S)
+            if out.returncode != 0:
+                raise RuntimeError(f"tag failed: {out.stderr[-2000:]}")
+            top = json.loads(out.stdout.strip().splitlines()[-1])["top_k"]
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()
+    # the same clip through a direct server on the same seeded weights
+    from mla_tpu_torch.data.audio_io import load_wav_16k
+
+    body = client_mod._WireEncoder("adpcm4").encode(load_wav_16k(clip), final=True)
+    want = _direct_scores(direct_adpcm4(state_dict), "adpcm4", [[body]], names)[0]
+    cli_err = max(abs(p - float(want[names.index(n)])) for n, p in top)
+    rec["cli"] = {"line": line.strip(), "top_k": top, "serve_start_s": serve_s,
+                  "max_abs_err_vs_direct": cli_err, "s": time.perf_counter() - t_cli}
+    print(f"fronts, entry points: `{line.strip()}` after {serve_s:.2f} s; `tag` printed {top}; "
+          f"against a direct server on the same seeded weights max |diff| {cli_err:.3e} "
+          f"(budget {FRONT_SCORE_BUDGET:g}); the server terminated")
+    if len(top) != 5 or cli_err > FRONT_SCORE_BUDGET:
+        raise RuntimeError(f"fronts, entry points: {rec['cli']}")
+    return rec, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs the port on "
@@ -384,7 +897,7 @@ def main() -> int:
     record["card"] = card
     tag = f"({card})"
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source and the native front's g++, all started together
     sources = {"fused_frontend": ff._SIGNATURES, "row_merge": rm._SIGNATURES,
                "adpcm": ad._SIGNATURES}
 
@@ -393,11 +906,22 @@ def main() -> int:
         _build.load(src, sources[src])
         return time.perf_counter() - t0
 
+    def build_native():
+        t0 = time.perf_counter()
+        _build.load_native("serve_front")
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         futures = {src: pool.submit(build, src) for src in sources}
+        native_future = pool.submit(build_native)
         build_s = {src: f.result() for src, f in futures.items()}
-    print(f"build: {len(sources)} sources in parallel, {time.perf_counter() - t0:.2f} s")
+        native_s = native_future.result()
+    print(f"build: {len(sources)} sources and the native front in parallel, "
+          f"{time.perf_counter() - t0:.2f} s")
+    print(f"build: native/serve_front.cpp (g++ {' '.join(_build.GXX_FLAGS)}) {native_s:.2f} s -> "
+          f"{_build.native_library_path('serve_front')}")
+    record["native_build_s"] = native_s
     for src, s in build_s.items():
         print(f"build: csrc/{src}.cu {s:.2f} s")
         ptxas_log = _build.library_path(src).with_suffix(".log")
@@ -873,6 +1397,12 @@ def main() -> int:
             raise RuntimeError(f"{what}: card against CPU {err}")
         del net
     record["leftovers"] = leftovers
+
+    # 5c. the serving fronts at full width, and the serve / tag verbs
+    fronts, front_paths = _fronts(scfg, state_dict, state_dict2, streams, zero_counts,
+                                  check_launches, tag)
+    new_paths.update(front_paths)
+    record["fronts"] = fronts
 
     # 6. the training path at full width
     tcfg = get_config("us8k_fused_frontend", TRAIN_CUT)

@@ -1,5 +1,10 @@
-"""Wire quantizers the streaming server needs (own copies of the functions
-in ``mla_tpu/data/audio_io.py``): PCM16 and 8-bit mu-law.
+"""Host audio IO and the wire quantizers (own copy of
+``mla_tpu/data/audio_io.py``): wav read / write and polyphase resampling
+on numpy and scipy, PCM16 and 8-bit mu-law.
+
+The reference reads wavs through its C++ decoder (``data/native.py``) when
+that is built; the port takes the reference's scipy path (ROADMAP.md
+queue A, item 10 ports the native decoder).
 
 ``mulaw_decode`` takes a numpy array on the host or a torch tensor on any
 device, with one formula for both sides of the wire.
@@ -7,10 +12,59 @@ device, with one formula for both sides of the wire.
 
 from __future__ import annotations
 
+import io
+from fractions import Fraction
+
 import numpy as np
 import torch
+from scipy.io import wavfile as _wavfile
 
 MULAW_MU = 255.0
+
+
+def _pcm_to_float_mono(data: np.ndarray) -> np.ndarray:
+    """Integer PCM scaled by its dtype range; multi-channel mean-downmixed."""
+    if data.dtype == np.int16:
+        x = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        x = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        x = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        x = data.astype(np.float32)
+    if x.ndim == 2:
+        x = x.mean(axis=1)
+    return x
+
+
+def read_wav(path: str) -> tuple[np.ndarray, int]:
+    """Read a wav file -> (float32 waveform in [-1, 1], sample_rate)."""
+    sr, data = _wavfile.read(path)
+    return _pcm_to_float_mono(data), int(sr)
+
+
+def read_wav_bytes(data: bytes) -> tuple[np.ndarray, int]:
+    """In-memory wav decode (the HTTP fronts receive file bytes)."""
+    sr, raw = _wavfile.read(io.BytesIO(data))
+    return _pcm_to_float_mono(raw), int(sr)
+
+
+def resample(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
+    if sr == target_sr:
+        return np.asarray(x, np.float32)
+    from scipy.signal import resample_poly  # seconds to import; only a resample needs it
+
+    frac = Fraction(target_sr, sr).limit_denominator(1000)
+    return resample_poly(x, frac.numerator, frac.denominator).astype(np.float32)
+
+
+def load_wav_16k(path: str, target_sr: int = 16000) -> np.ndarray:
+    x, sr = read_wav(path)
+    return resample(x, sr, target_sr)
+
+
+def write_wav(path: str, x: np.ndarray, sr: int = 16000):
+    _wavfile.write(path, sr, pcm16_quantize(x))
 
 
 def pcm16_quantize(x: np.ndarray) -> np.ndarray:

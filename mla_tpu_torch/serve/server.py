@@ -518,6 +518,7 @@ class BatchedStreamingServer:
         """The readout of ``timeline`` from a snapshot of (states, tl)."""
         return ap.read_timeline(states, tl, sid, self._acts[0])
 
+    @torch.inference_mode()
     def timeline_with_scores_from(self, model, states, tl, sid: int):
         """``(scores, start_patch, levels)`` from a snapshot of (model,
         states, tl), ``model`` being the server's ``model`` when the

@@ -66,3 +66,54 @@ def torch_model(torch_model_cfg, flat):
     model = torch_build_model(torch_model_cfg, device="cpu")
     model.load_state_dict(flat_to_state_dict(flat, model))
     return model
+
+
+# --- the HTTP fronts: one request sequence sent to the port's and JAX's ---
+
+def http_call(base, method, path, body=None, ctype="application/octet-stream", headers=None):
+    """One request -> (status, JSON reply); error statuses are returned,
+    not raised. Every request carries a 30 s client timeout."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, method=method)
+    if body is not None:
+        req.add_header("Content-Type", ctype)
+    for k, v in (headers or {}).items():
+        req.add_header(k, v)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def assert_replies_match(got, want, tol):
+    """The port's reply against JAX's for one request: the same status and
+    JSON keys; top-k and timeline labels equal, their numbers within
+    ``tol``; every other value equal (error texts excepted)."""
+    (status, obj), (want_status, want_obj) = got, want
+    assert status == want_status, (got, want)
+    assert sorted(obj) == sorted(want_obj), (obj, want_obj)
+    for k, v in obj.items():
+        w = want_obj[k]
+        if k in ("top_k", "classes"):
+            assert [n for n, _ in v] == [n for n, _ in w], (k, v, w)
+            np.testing.assert_allclose([p for _, p in v], [p for _, p in w], **tol)
+        elif k in ("weights", "probs"):
+            np.testing.assert_allclose(np.asarray(v), np.asarray(w), **tol)
+        elif k == "hop_s":
+            np.testing.assert_allclose(v, w, rtol=1e-12)
+        elif k != "error":
+            assert v == w, (k, v, w)
+
+
+def both(bases, method, path, body=None, ctype="application/octet-stream", headers=None,
+         tol=None):
+    """Send one request to the port's front (bases[0]) and then JAX's
+    (bases[1]); assert their replies match; return the port's."""
+    got = http_call(bases[0], method, path, body, ctype, headers)
+    want = http_call(bases[1], method, path, body, ctype, headers)
+    assert_replies_match(got, want, tol or dict(rtol=1e-4, atol=1e-5))
+    return got
