@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing its last line:
-  1. device: the card's name, power limit and compute capability (9, 0);
+  1. device: the card's name, power limit and compute capability (9, 0), and
+     whether h5py and tensorboard import on this machine;
   2. build: every kernel source in mla_tpu_torch/csrc (fused_frontend.cu,
      row_merge.cu, adpcm.cu), one nvcc each, all started together, timed,
      with nvcc's ptxas report;
@@ -80,6 +81,25 @@ printing its last line:
      128 x 10 s on each front-end impl: finite losses, the first step's
      loss pallas against xla, every front-end launch on mma, step times
      on the host clock and with CUDA events, peak memory, one profile;
+  5d. export on the card (mla_tpu_torch/serve/export.py), same preset and
+     weights: the one-shot artifact at batch 8 x 10 s on float32 and adpcm4,
+     against the eager forward of the decoded clips (1e-3), and the
+     streaming pair at 8 streams x 5-patch chunks with the ring
+     (timeline_cap 64) on int16 and adpcm4, scores and timelines against the
+     live server on the torch-ops front-end fed the same audio (1e-3) and
+     scores against the pallas servers of phase 5 (2e-2); each artifact
+     written to disk and loaded fresh; the ADPCM artifacts launch the
+     decode kernel once per call, on serial, and no front-end kernel (the
+     exporter takes the torch-ops front-end, as the reference's does); host
+     ms per chunk call; a card artifact loaded with device="cpu" runs once;
+  6c. the training leftovers: fit() on us8k_fused_frontend with mixup,
+     SpecAugment and data.pipeline="grain" (the DataLoader pipeline, two
+     workers), finite losses, one mma front-end launch per step and eval
+     batch (phase 7 times the augmented step in turns with the plain one and
+     profiles five); the flagship train step with
+     remat_trunk off and on (first-step loss within 1e-3, running
+     statistics equal, peak memory, step ms); evaluate_sed on 64
+     synthetic_events clips of 10 s at the streaming preset's width;
   7. times (median of 30 after warm-up): each kernel, its plain version and
      the library call where one exists, with CUDA events (the front-end's
      two variants per mode at the serving and training shapes, and the mma
@@ -97,8 +117,9 @@ printing its last line:
      and five train steps.
 Launch counts are set to 0 just before each path (probe, serving on each
 wire, the ring, packed and reload serving paths, the two fronts' soaks and the
-reload soak, training, adpcm4-staged training, the flagship forward and train
-steps) is driven and read just after. The script prints the card's line
+reload soak, each exported artifact's run, training, adpcm4-staged
+training, the flagship forward and train steps, the augmented fit, the SED
+harness) is driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
 build/chip_smoke.json.
@@ -853,6 +874,298 @@ def _fronts(scfg, state_dict, state_dict2, streams, zero_counts, check_launches,
     return rec, paths
 
 
+EXPORT_SCORE_BUDGET = 1e-3  # artifacts against the live xla server / eager forward, same bytes
+EXPORT_SECONDS = 10.0  # the one-shot artifacts' clip length (batch 8)
+EXPORT_WIRES = ("int16", "adpcm4")  # the streaming pair's wires
+
+
+def _export(scfg, state_dict, streams, pallas_scores, zero_counts, tag):
+    """The export phase: the one-shot artifact at batch 8 x 10 s on float32
+    and adpcm4 and the streaming pair at 8 streams x 5-patch chunks with the
+    ring (timeline_cap 64) on int16 and adpcm4, each exported on the card,
+    written to disk and loaded fresh. Scores and timelines against the live
+    server on the torch-ops front-end ("xla") fed the same bytes (1e-3) and
+    scores against the "pallas" servers of phase 5 (2e-2); the one-shot
+    against the eager forward of the decoded clips; decode launches = chunk
+    calls (serial) on adpcm4; host ms per chunk call; a card artifact loaded
+    with device="cpu". Returns (record, {path: decode launches by variant})."""
+    from mla_tpu_torch.data import adpcm
+    from mla_tpu_torch.data.audio_io import pcm16_quantize
+    from mla_tpu_torch.ops import adpcm as ad
+    from mla_tpu_torch.ops import frontend as fe
+    from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.serve import export as ex
+    from mla_tpu_torch.serve.server import BatchedStreamingServer
+    from mla_tpu_torch.serve.streaming import _model_with_weights, _whole_patches
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_export")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    xcfg = dataclasses.replace(scfg, frontend=dataclasses.replace(scfg.frontend, impl="xla"))
+    rec, dec_paths = {"oneshot": {}, "streaming": {}}, {}
+    blk = adpcm.SERVE_BLOCK
+
+    def wire_of(x, wire):
+        """float32 samples [..., n] -> the wire's bytes as the server's feed takes them."""
+        pcm = pcm16_quantize(x)
+        return pcm if wire == "int16" else adpcm.adpcm4_encode(pcm, block=blk)
+
+    # the one-shot forward at batch 8 x 10 s, against the eager forward of
+    # the same (decoded) clips on the same weights
+    n = int(EXPORT_SECONDS * scfg.frontend.sample_rate)
+    clips = np.stack([s[:n] for s in streams])
+    model = _model_with_weights(scfg, state_dict, torch.device("cuda"))
+    for wire in ("float32", "adpcm4"):
+        path = os.path.join(out_dir, f"oneshot_{wire}.mlxt")
+        t0 = time.perf_counter()
+        meta = ex.export_forward(scfg, state_dict, path, batch=len(clips),
+                                 seconds=EXPORT_SECONDS, input_dtype=wire)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = ex.load_exported(path)
+        load_s = time.perf_counter() - t0
+        x = clips if wire == "float32" else wire_of(clips, wire)
+        decoded = clips if wire == "float32" else adpcm.adpcm4_decode(x, n=n, block=blk)
+        zero_counts()
+        probs = fn(x)
+        torch.cuda.synchronize()
+        launches = {"decode": dict(ad.LAUNCHES_BY_VARIANT), "frontend": dict(ff.LAUNCHES_BY_VARIANT)}
+        with torch.inference_mode():
+            want = model(fe.waveform_to_patches(torch.from_numpy(decoded).cuda(), scfg.frontend)
+                         ).float().cpu().numpy()
+        err = float(np.abs(probs - want).max())
+        host_ms = _host_median_ms(lambda: fn(x), reps=10, warmup=2)
+        want_dec = {"scan": 0, "serial": 1 if wire == "adpcm4" else 0}
+        print(f"export one-shot, {wire}, batch {len(clips)} x {EXPORT_SECONDS:g} s: export "
+              f"{export_s:.2f} s, {os.path.getsize(path) / 1e6:.2f} MB, load {load_s:.2f} s; "
+              f"probs {probs.shape} against the eager forward max |diff| {err:.3e} (budget "
+              f"{EXPORT_SCORE_BUDGET:g}); adpcm_decode launches {launches['decode']}, "
+              f"fused_log_mel_patches launches {launches['frontend']}; host ms per call "
+              f"{host_ms:.4f} {tag}")
+        if probs.shape != (len(clips), scfg.model.n_classes) or not np.isfinite(probs).all() \
+                or err > EXPORT_SCORE_BUDGET:
+            raise RuntimeError(f"export one-shot {wire}: shape {probs.shape}, err {err}")
+        if launches["decode"] != want_dec or sum(launches["frontend"].values()):
+            raise RuntimeError(f"export one-shot {wire}: launches {launches}, want decode "
+                               f"{want_dec} and no front-end kernel (the torch-ops front-end)")
+        if wire == "adpcm4":
+            dec_paths["export_oneshot_adpcm4"] = launches["decode"]
+        rec["oneshot"][wire] = {"export_s": export_s, "load_s": load_s, "err_vs_eager": err,
+                                "bytes": os.path.getsize(path), "host_ms": host_ms,
+                                "launches": launches}
+    del model
+
+    # the streaming pair: every stream's wire cut into chunk calls at the hop;
+    # a stream's last call carries its tail padded with silence (n_valid its
+    # whole patches), and a stream that has ended rides along with n_valid 0
+    for wire in EXPORT_WIRES:
+        path = os.path.join(out_dir, f"stream_{wire}.mlxt")
+        t0 = time.perf_counter()
+        meta = ex.export_streaming(scfg, state_dict, path, streams=len(streams), chunk_patches=5,
+                                   input_dtype=wire, timeline_cap=TIMELINE_CAP)
+        export_s = time.perf_counter() - t0
+        art = ex.load_exported_streaming(path)
+        # wire units (samples, or adpcm bytes) per `per` samples
+        unit, per = (1, 1) if wire == "int16" else (adpcm.wire_block_bytes(blk, 4), blk)
+        cu = meta.get("wire_length") or meta["chunk_samples"]
+        hu = meta["hop_samples"] // per * unit
+        silence = (np.zeros(cu, np.int16) if wire == "int16"
+                   else np.tile(adpcm.adpcm4_encode(np.zeros(blk, np.int16), block=blk),
+                                cu // unit))
+        calls = []
+        for s in streams:
+            w, rows, off = wire_of(s, wire), [], 0
+            while off + cu <= len(w):
+                rows.append((w[off: off + cu], meta["chunk_patches"]))
+                off += hu
+            tail = w[off:]  # its whole patches count from the samples, not the padded block
+            rows.append((np.concatenate([tail, silence[len(tail):]]),
+                         _whole_patches(scfg.frontend, len(s) - off // unit * per)))
+            calls.append(rows)
+        n_calls = max(len(r) for r in calls)
+        state = art.init_state()
+        zero_counts()
+        call_ms = []
+        for k in range(n_calls):
+            batch = np.stack([r[k][0] if k < len(r) else silence for r in calls])
+            n_valid = np.array([r[k][1] if k < len(r) else 0 for r in calls], np.int32)
+            t0 = time.perf_counter()
+            state = art.chunk(state, batch, n_valid)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        scores = art.finalize(state)
+        launches = {"decode": dict(ad.LAUNCHES_BY_VARIANT), "frontend": dict(ff.LAUNCHES_BY_VARIANT)}
+        want_dec = {"scan": 0, "serial": n_calls if wire == "adpcm4" else 0}
+        xsrv = BatchedStreamingServer(xcfg, state_dict, max_streams=len(streams), chunk_patches=5,
+                                      transfer_dtype=wire, timeline_cap=TIMELINE_CAP)
+        sids = [xsrv.open() for _ in streams]
+        for sid, s in zip(sids, streams):  # encoded at feed time to the same wire bytes
+            xsrv.feed(sid, s)
+        xsrv.drain()
+        for sid in sids:
+            xsrv.flush(sid)
+        live = np.stack([xsrv.scores(sid) for sid in sids])
+        score_err = float(np.abs(scores - live).max())
+        tl_err = 0.0
+        for i, sid in enumerate(sids):
+            start, levels = art.timeline(state, i)
+            want_start, want_levels = xsrv.timeline(sid)
+            if start != want_start or len(levels) != len(want_levels) \
+                    or levels[0][0].shape != want_levels[0][0].shape:
+                raise RuntimeError(f"export stream {wire}: stream {i} window start {start} / "
+                                   f"{want_start}, shapes differ")
+            tl_err = max([tl_err] + [float(np.abs(a - b).max()) for lv, wl in
+                                     zip(levels, want_levels) for a, b in zip(lv, wl)])
+        pallas = pallas_scores[wire][: len(streams)]
+        pallas_err = float(np.abs(scores - pallas).max())
+        med_ms = statistics.median(call_ms[1:])
+        print(f"export streaming, {wire}, {len(streams)} streams x 5 patches, ring "
+              f"{TIMELINE_CAP}: export {export_s:.2f} s, {os.path.getsize(path) / 1e6:.2f} MB; "
+              f"{n_calls} chunk calls, host ms per call median {med_ms:.4f} (first {call_ms[0]:.2f}); "
+              f"scores against the live xla server max |diff| {score_err:.3e}, timelines "
+              f"{tl_err:.3e} (budget {EXPORT_SCORE_BUDGET:g}); against the pallas server "
+              f"{pallas_err:.3e} (budget {BF16_SCORE_BUDGET:g}); adpcm_decode launches "
+              f"{launches['decode']} {tag}")
+        if not np.isfinite(scores).all() or score_err > EXPORT_SCORE_BUDGET \
+                or tl_err > EXPORT_SCORE_BUDGET or pallas_err > BF16_SCORE_BUDGET:
+            raise RuntimeError(f"export stream {wire}: scores {score_err}, timelines {tl_err}, "
+                               f"pallas {pallas_err}")
+        if launches["decode"] != want_dec or sum(launches["frontend"].values()):
+            raise RuntimeError(f"export stream {wire}: launches {launches}, want decode {want_dec}")
+        if wire == "adpcm4":
+            dec_paths["export_stream_adpcm4"] = launches["decode"]
+        rec["streaming"][wire] = {"export_s": export_s, "bytes": os.path.getsize(path),
+                                  "chunk_calls": n_calls, "chunk_host_ms": med_ms,
+                                  "chunk_host_ms_all": call_ms, "err_vs_live_xla": score_err,
+                                  "timeline_err_vs_live_xla": tl_err,
+                                  "err_vs_pallas_server": pallas_err, "launches": launches}
+        del xsrv, art
+
+    # a card artifact on the CPU: the move pass carries the program, its
+    # weights and its constants
+    path = os.path.join(out_dir, "oneshot_small_int16.mlxt")
+    ex.export_forward(scfg, state_dict, path, batch=1, seconds=2.0, input_dtype="int16")
+    x = pcm16_quantize(streams[0][: 2 * scfg.frontend.sample_rate])[None]
+    on_card = ex.load_exported(path)(x)
+    t0 = time.perf_counter()
+    on_cpu = ex.load_exported(path, device="cpu")(x)
+    cpu_s = time.perf_counter() - t0
+    cpu_err = float(np.abs(on_cpu - on_card).max())
+    print(f"export: a card artifact (int16, 1 x 2 s) loaded with device='cpu' ran in "
+          f"{cpu_s:.2f} s, probs finite {bool(np.isfinite(on_cpu).all())}, against the card max "
+          f"|diff| {cpu_err:.3e} (bf16 on two devices)")
+    if on_cpu.shape != on_card.shape or not np.isfinite(on_cpu).all():
+        raise RuntimeError(f"the card artifact on the CPU: {on_cpu}")
+    rec["cpu_load"] = {"seconds": cpu_s, "err_vs_card": cpu_err}
+    return rec, dec_paths
+
+
+# the augmented us8k fit: as shipped, cut only in steps, with mixup,
+# SpecAugment and the DataLoader pipeline with two workers
+AUG_TRAIN_CUT = {"train.num_steps": 10, "train.eval_every": 10, "train.checkpoint_every": 0,
+                 "train.log_every": 1, "train.mixup_alpha": 0.5, "train.spec_augment": True,
+                 "data.pipeline": "grain", "data.grain_workers": 2}
+REMAT_STEPS = 3  # timed flagship train steps per remat setting, after the checked first
+SED_CLIPS = 64  # the synthetic_events eval set of the SED phase, 10 s clips
+
+
+def _train_leftovers(state_dict, fwav, fy, zero_counts, tag):
+    """The training leftovers at full width: fit() on us8k_fused_frontend
+    with mixup, SpecAugment and the DataLoader pipeline (finite losses, one
+    mma front-end launch per step and eval batch; phase 7 times the
+    augmented step against the plain one); the flagship train step with remat_trunk off and on (first-step
+    loss within 1e-3, running statistics equal, peak memory and step ms);
+    evaluate_sed on a synthetic_events eval set at the streaming preset's
+    width. Returns (record, {path: front-end launches by variant})."""
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.entry import flagship_config
+    from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.train import loop
+    from mla_tpu_torch.train.sed_eval import evaluate_sed
+    from mla_tpu_torch.train.state import create_train_state, make_train_step
+
+    rec, fe_paths = {}, {}
+    acfg = get_config("us8k_fused_frontend", AUG_TRAIN_CUT)
+    ws = os.path.join(ROOT, "build", "chip_smoke_train_aug")
+    shutil.rmtree(ws, ignore_errors=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = loop.fit(acfg, workspace=ws)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, fe_l = dict(res.counts), dict(ff.LAUNCHES_BY_VARIANT)
+    losses = [h["loss"] for h in res.history]
+    print(f"augmented training (mixup {acfg.train.mixup_alpha}, SpecAugment, DataLoader pipeline "
+          f"with {acfg.data.grain_workers} workers): {counts['train_steps']} train steps + "
+          f"{counts['eval_batches']} eval batches in {fit_s:.2f} s, fused_log_mel_patches "
+          f"launches {fe_l}; losses {losses}")
+    if counts["train_steps"] != acfg.train.num_steps or not losses \
+            or not np.isfinite(losses).all():
+        raise RuntimeError(f"augmented fit: {counts}, losses {losses}")
+    if fe_l != {"mma": counts["train_steps"] + counts["eval_batches"], "simt": 0}:
+        raise RuntimeError(f"augmented fit: front-end launches {fe_l} for {counts}")
+    fe_paths["train_augmented"] = fe_l
+    rec["augmented_fit"] = {"counts": counts, "losses": losses, "fit_s": fit_s,
+                            "frontend_launches": fe_l}
+
+    # the flagship train step, remat_trunk off and on, from the same weights
+    # and batch
+    remat = {}
+    for on in (False, True):
+        c = flagship_config(overrides={"model.remat_trunk": on})
+        m = build_model(c.model, seed=SEED)
+        st = create_train_state(c, m)
+        fstep = make_train_step(c, m, "waveform")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first = float(fstep(st, fwav, fy)[1])
+        stats = {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
+        step_ms = _host_median_ms(lambda: fstep(st, fwav, fy), reps=REMAT_STEPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        remat[on] = {"first_loss": first, "stats": stats, "step_ms_host": step_ms,
+                     "peak_memory_gb": peak}
+        print(f"flagship train step, remat_trunk={on}, batch {FLAGSHIP_BATCH} x 10 s: first loss "
+              f"{first:.6f}; host clock {step_ms:.4f} ms (median of {REMAT_STEPS}); peak memory "
+              f"{peak:.2f} GB {tag}")
+        del m, st, fstep
+    loss_err = abs(remat[True]["first_loss"] - remat[False]["first_loss"])
+    stats_diff = max(float((remat[True]["stats"][k] - v).abs().max())
+                     for k, v in remat[False]["stats"].items())
+    print(f"flagship remat: first-step loss |diff| {loss_err:.3e} (budget {BF16_LOSS_BUDGET:g}); "
+          f"running statistics max |diff| {stats_diff:.3e} over {len(remat[False]['stats'])} "
+          f"tensors (must be equal)")
+    if loss_err > BF16_LOSS_BUDGET or stats_diff != 0.0:
+        raise RuntimeError(f"remat against no remat: loss {loss_err}, statistics {stats_diff}")
+    rec["remat"] = {str(on).lower(): {k: v for k, v in r.items() if k != "stats"}
+                    for on, r in remat.items()}
+    rec["remat"].update(first_loss_err=loss_err, stats_max_diff=stats_diff)
+    torch.cuda.empty_cache()
+
+    # the SED harness at full width on random weights (no quality claim)
+    ecfg = get_config("streaming_inference", {"frontend.impl": "pallas",
+                                              "data.dataset": "synthetic_events",
+                                              "data.clip_seconds": 10.0,
+                                              "data.n_eval_clips": SED_CLIPS})
+    zero_counts()
+    t0 = time.perf_counter()
+    sed = evaluate_sed(ecfg, state_dict, batch_size=32)
+    torch.cuda.synchronize()
+    sed_s = time.perf_counter() - t0
+    fe_l = dict(ff.LAUNCHES_BY_VARIANT)
+    print(f"SED harness: evaluate_sed on {SED_CLIPS} synthetic_events clips of 10 s, "
+          f"{ecfg.model.n_classes} classes, batch 32: {sed_s:.2f} s wall; F1 {sed['f1']:.4f}, "
+          f"error rate {sed['error_rate']:.4f}, {sed['n_est_events']} events detected against "
+          f"{sed['n_ref_events']}; fused_log_mel_patches launches {fe_l} (random weights: no "
+          f"quality claim) {tag}")
+    if not all(np.isfinite(sed[k]) for k in ("f1", "error_rate", "precision", "recall")) \
+            or sed["n_clips"] != SED_CLIPS or fe_l != {"mma": 2, "simt": 0}:
+        raise RuntimeError(f"SED harness: {sed}, launches {fe_l}")
+    fe_paths["sed_eval"] = fe_l
+    rec["sed"] = {**sed, "wall_s": sed_s}
+    return rec, fe_paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs the port on "
@@ -896,6 +1209,15 @@ def main() -> int:
         raise RuntimeError(f"the kernels are built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
     record["card"] = card
     tag = f"({card})"
+    # what this machine offers the next slice's hdf5 reader and TensorBoard sink
+    record["packages"] = {}
+    for mod in ("h5py", "tensorboard"):
+        r = subprocess.run([sys.executable, "-c", f"import {mod}; print({mod}.__version__)"],
+                           capture_output=True, text=True, timeout=120)
+        found = r.stdout.strip() if r.returncode == 0 else None
+        record["packages"][mod] = found
+        why = (r.stderr.strip().splitlines() or ["no output"])[-1]
+        print(f"package {mod}: {found or f'not importable ({why})'}")
 
     # 2. build: one nvcc per source and the native front's g++, all started together
     sources = {"fused_frontend": ff._SIGNATURES, "row_merge": rm._SIGNATURES,
@@ -1404,6 +1726,12 @@ def main() -> int:
     new_paths.update(front_paths)
     record["fronts"] = fronts
 
+    # 5d. export on the card: the one-shot and streaming artifacts, written,
+    # loaded fresh and held against the live servers
+    export_rec, export_dec = _export(scfg, state_dict, streams,
+                                     {"int16": scores, "adpcm4": adpcm4_scores}, zero_counts, tag)
+    record["export"] = export_rec
+
     # 6. the training path at full width
     tcfg = get_config("us8k_fused_frontend", TRAIN_CUT)
     ws = os.path.join(ROOT, "build", "chip_smoke_train")
@@ -1488,7 +1816,8 @@ def main() -> int:
         raise RuntimeError(f"adpcm4 staging: decode launches {a_dec_by_variant} not all on "
                            f"{picked}")
     # each decode variant is some main-path site's pick
-    dec_by_path = {"serve_adpcm4": adpcm_serve["adpcm4"]["decode_launches_by_variant"],
+    dec_by_path = {**export_dec,
+                   "serve_adpcm4": adpcm_serve["adpcm4"]["decode_launches_by_variant"],
                    "serve_adpcm2": adpcm_serve["adpcm2"]["decode_launches_by_variant"],
                    **{p: r["decode_launches"] for p, r in new_paths.items() if "adpcm4" in p},
                    "train_adpcm4": a_dec_by_variant}
@@ -1602,6 +1931,11 @@ def main() -> int:
                           "fidelity_default_vs_highest": fidelity, "logmel_default_vs_highest":
                           logmel_err, "pallas_vs_xla": pallas_err, "forward_launches": fwd_launches,
                           "first_step_loss_err": f_loss_err, **flagship}
+
+    # 6c. the training leftovers: augmented fit on the DataLoader pipeline,
+    # the flagship step with remat, the SED harness
+    leftovers, leftover_fe = _train_leftovers(state_dict, fwav, fy, zero_counts, tag)
+    record["train_leftovers"] = leftovers
 
     # 7. times
     # the fused front-end at the serving and the training shape: both
@@ -1829,6 +2163,14 @@ def main() -> int:
           f"against {tick_prof['idle_share']}; the decode kernel {atick_decode_ms} device ms per "
           f"tick {tag}")
 
+    for wire in EXPORT_WIRES:  # reported, not gated: the host clock moves between calls
+        tk = ticks[wire]["ms"]
+        print(f"time: export streaming chunk call, {wire}, ring {TIMELINE_CAP}: host "
+              f"{export_rec['streaming'][wire]['chunk_host_ms']:.4f} ms (median of the run's "
+              f"calls) beside the live server's tick_packed {tk['packed']:.4f} ms"
+              + (f", with the ring {tk['ring packed']:.4f} ms" if "ring packed" in tk else "")
+              + f" {tag}")
+
     # one train step at full width, host clock, and its profile
     state = result.state
     step = make_train_step(tcfg, state.model, "waveform", clip_samples=x1.shape[1])
@@ -1842,6 +2184,24 @@ def main() -> int:
                                 _profile(lambda: step(state, x1, y1), n_steps_prof), tag)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"memory: peak allocated {peak_gb:.2f} GB over the us8k train steps {tag}")
+    # the augmented step (mixup + SpecAugment) against the plain one, in turns
+    # from the same weights on the same batch, then its own profile
+    acfg = get_config("us8k_fused_frontend", AUG_TRAIN_CUT)
+    am = build_model(acfg.model, seed=SEED)
+    am.load_state_dict(state.model.state_dict())
+    astate = create_train_state(acfg, am)
+    astep = make_train_step(acfg, am, "waveform", clip_samples=x1.shape[1])
+    aug_turns, _ = _in_turns({"plain": lambda: step(state, x1, y1),
+                              "augmented": lambda: astep(astate, x1, y1)})
+    aug_prof = _report_profile("augmented train step", n_steps_prof, aug_turns["augmented"],
+                               _profile(lambda: astep(astate, x1, y1), n_steps_prof), tag)
+    print(f"time: augmented us8k train step (mixup + SpecAugment), host clock in turns with the "
+          f"plain step ({REPS} each): {aug_turns['augmented']:.4f} ms against "
+          f"{aug_turns['plain']:.4f} ms; device busy {aug_prof['device_busy_ms']} against "
+          f"{step_prof['device_busy_ms']} ms; idle share {aug_prof['idle_share']} against "
+          f"{step_prof['idle_share']} {tag}")
+    leftovers["augmented_step"] = {"turns_ms": aug_turns, "profile": aug_prof}
+    del am, astate, astep
     record.update(kernel_ms=kernel_ms, plain_ms=plain_ms, frontend_serving=st,
                   frontend_training=tt, tick_ms=tick_med, bound_ms=bound,
                   bound_ms_f32_cores=sbound["f32_cores_ms"], bytes=sbound["bytes"],
@@ -1860,7 +2220,7 @@ def main() -> int:
                   "serve_adpcm4": {"mma": adpcm_serve["adpcm4"]["frontend_launches"], "simt": 0},
                   "serve_adpcm2": {"mma": adpcm_serve["adpcm2"]["frontend_launches"], "simt": 0},
                   **{p: r["frontend_launches"] for p, r in new_paths.items()},
-                  "train_adpcm4": a_fe, "flagship_forward": fwd_launches,
+                  "train_adpcm4": a_fe, **leftover_fe, "flagship_forward": fwd_launches,
                   "flagship_train": flagship["pallas"]["frontend_launches"]}
     kernels = [{
         "name": "fused_log_mel_patches",

@@ -1,6 +1,6 @@
 """CLI of the PyTorch port (counterpart of ``mla_tpu/__main__.py``). The
-``train``, ``serve`` and ``tag`` verbs are ported so far (ROADMAP.md queue
-A, item 10 lists the rest):
+``train``, ``serve``, ``tag`` and ``export`` verbs are ported so far
+(ROADMAP.md queue A, item 10 lists the rest):
 
     python -m mla_tpu_torch train --config us8k_fused_frontend [--set k=v ...]
                                   [--workspace W] [--resume] [--device cpu]
@@ -9,12 +9,16 @@ A, item 10 lists the rest):
                                   [--transfer_dtype int16] [--device cpu] ...
     python -m mla_tpu_torch tag --url http://127.0.0.1:8000 --wav clip.wav
                                 [--wire adpcm4] [--top_k 5]
+    python -m mla_tpu_torch export --out model.mlxt [--streaming]
+                                   [--input_dtype adpcm4] [--batch 8] [--device cpu] ...
 
-``train`` and ``serve`` run on the card (``--device cpu`` asks for the CPU).
-``train`` prints one JSON line: the final logged loss and the last eval
-stats. ``serve`` prints ``serving <variant> on http://host:port/v1 (...)``
-and serves until interrupted; ``tag`` tags a wav through a running service
-and prints its top-k as one JSON line.
+``train``, ``serve`` and ``export`` run on the card (``--device cpu`` asks
+for the CPU). ``train`` prints one JSON line: the final logged loss and the
+last eval stats. ``serve`` prints ``serving <variant> on
+http://host:port/v1 (...)`` and serves until interrupted; ``tag`` tags a wav
+through a running service and prints its top-k as one JSON line; ``export``
+writes a ``torch.export`` artifact (``serve/export.py``) and prints its
+header as one JSON line.
 """
 
 from __future__ import annotations
@@ -160,6 +164,25 @@ def cmd_serve(args):
         srv.server_close()
 
 
+def cmd_export(args):
+    """Export the waveform -> probs forward (or, with --streaming, the
+    chunk-fold + finalize pair) with the serving weights in it, as a
+    ``torch.export`` artifact on --device."""
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.serve.export import export_forward, export_streaming
+
+    cfg = get_config(args.config, _parse_sets(args.set))
+    state_dict = _serving_weights(args, cfg)
+    if args.streaming:
+        meta = export_streaming(cfg, state_dict, args.out, streams=args.batch,
+                                chunk_patches=args.chunk_patches, input_dtype=args.input_dtype,
+                                timeline_cap=args.timeline_cap, device=args.device)
+    else:
+        meta = export_forward(cfg, state_dict, args.out, batch=args.batch, seconds=args.seconds,
+                              input_dtype=args.input_dtype, device=args.device)
+    print(_jdump({"out": args.out, **meta}))
+
+
 def cmd_tag(args):
     """Client side of ``serve``: tag a wav through a running service,
     uploading in the chosen wire encoding (serve/client.py). With
@@ -276,6 +299,34 @@ def main(argv=None):
     sg.add_argument("--event_gap", type=float, default=0.0)
     sg.add_argument("--event_min_dur", type=float, default=0.0)
     sg.set_defaults(fn=cmd_tag)
+    sx = sub.add_parser("export", help="export waveform -> probs as a torch.export artifact")
+    sx.add_argument("--config", default="streaming_inference")
+    sx.add_argument("--workspace", default=None)
+    sx.add_argument("--checkpoint", default="latest",
+                    help="'latest' (the workspace's newest checkpoint; random weights "
+                         "when there is none) or 'random' (seeded random weights)")
+    sx.add_argument("--out", required=True)
+    sx.add_argument("--batch", type=int, default=8,
+                    help="clips per call (one-shot) / streams (--streaming)")
+    sx.add_argument("--seconds", type=float, default=10.0)
+    sx.add_argument("--streaming", action="store_true",
+                    help="export the O(1)-state streaming tagger instead: a chunk-fold + "
+                         "finalize program pair for unbounded audio (loop chunks, read scores "
+                         "any time; load_exported_streaming)")
+    sx.add_argument("--chunk_patches", type=int, default=5,
+                    help="patches per chunk call (--streaming)")
+    sx.add_argument("--timeline_cap", type=int, default=0,
+                    help="with --streaming: fold the localization ring inside the chunk "
+                         "program (StreamingArtifact.timeline reads the window; 0 = off)")
+    sx.add_argument("--input_dtype", default="float32",
+                    choices=["float32", "int16", "uint8", "adpcm4", "adpcm2"],
+                    help="bake the wire in: int16 PCM, uint8 mu-law and adpcm4 / adpcm2 wire "
+                         "inputs are decoded inside the exported program")
+    sx.add_argument("--set", nargs="*")
+    sx.add_argument("--device", default=None,
+                    help="torch device the program is exported on; default the card "
+                         "(raises without one)")
+    sx.set_defaults(fn=cmd_export)
     args = p.parse_args(argv)
     args.fn(args)
     return 0

@@ -4,13 +4,15 @@ the tests hold the arrays bit-identical to the reference's).
 Clips are deterministic mixtures of class-coded tones + noise so that a
 model can actually learn: each class k owns a fundamental frequency, a
 clip's waveform contains the fundamentals of its active labels. Multi-label
-(AudioSet-style) or single-label (ESC-50 / UrbanSound8K-style) modes.
+(AudioSet-style) or single-label (ESC-50 / UrbanSound8K-style) modes, and
+the event corpus (``synth_event_waveforms``: tone bursts with known
+boundaries, the SED harness's reference, ``train/sed_eval.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -63,6 +65,66 @@ def synth_waveforms(
     return x, y
 
 
+def synth_event_waveforms(
+    n_clips: int,
+    n_classes: int,
+    clip_seconds: float,
+    sample_rate: int = 16000,
+    seed: int = 0,
+    max_events: int = 3,
+    min_event_s: float = 1.5,
+    max_event_s: Optional[float] = None,
+    noise: float = 0.05,
+    ramp_s: float = 0.01,
+):
+    """Event corpus with ground-truth boundaries: each clip is noise plus
+    1..max_events tone bursts (distinct classes, class-coded fundamentals as
+    in :func:`synth_waveforms`), each over a random [t_start, t_end) span
+    with short cosine ramps. Clip labels stay weak (multi-hot); the
+    boundaries are the reference the SED harness scores against.
+
+    Returns ``(x [N, samples] f32, y [N, C] multi-hot f32, events: per clip
+    [(class_idx, t_start_s, t_end_s), ...] sorted by start)``.
+    ``min_event_s`` defaults to 1.5 s so every event overlaps at least one
+    full 0.96 s patch of the front-end grid.
+    """
+    rng = np.random.default_rng(seed)
+    n = int(round(clip_seconds * sample_rate))
+    hi = max_event_s if max_event_s is not None else max(min_event_s, 0.5 * clip_seconds)
+    if min_event_s > clip_seconds:
+        raise ValueError(f"min_event_s {min_event_s} exceeds clip length {clip_seconds}")
+    t = np.arange(n) / sample_rate
+    ramp_n = max(1, int(ramp_s * sample_rate))
+    x = np.empty((n_clips, n), np.float32)
+    y = np.zeros((n_clips, n_classes), np.float32)
+    events = []
+    for i in range(n_clips):
+        k_active = rng.choice(n_classes, size=rng.integers(1, max_events + 1), replace=False)
+        wav = noise * rng.standard_normal(n)
+        clip_events = []
+        for k in k_active:
+            dur = float(rng.uniform(min_event_s, min(hi, clip_seconds)))
+            t0 = float(rng.uniform(0.0, clip_seconds - dur))
+            t1 = t0 + dur
+            s0, s1 = int(round(t0 * sample_rate)), int(round(t1 * sample_rate))
+            f0 = class_frequency(int(k), n_classes)
+            phase = rng.uniform(0, 2 * np.pi)
+            amp = rng.uniform(0.25, 0.5)
+            burst = amp * np.sin(2 * np.pi * f0 * t[s0:s1] + phase)
+            env = np.ones(s1 - s0)
+            m = min(ramp_n, len(env) // 2)
+            if m:
+                ramp = 0.5 - 0.5 * np.cos(np.pi * np.arange(m) / m)
+                env[:m] = ramp
+                env[-m:] = ramp[::-1]
+            wav[s0:s1] += burst * env
+            y[i, int(k)] = 1.0
+            clip_events.append((int(k), t0, t1))
+        x[i] = wav.astype(np.float32)
+        events.append(sorted(clip_events, key=lambda e: e[1]))
+    return x, y, events
+
+
 def synth_features(
     n_clips: int,
     n_classes: int,
@@ -98,13 +160,14 @@ _DATASET_CLASSES = {"synthetic_esc50": 50, "synthetic_us8k": 10,
 
 def make_dataset(
     data_cfg: DataConfig, n_classes: int, split: str = "train", kind: str = "waveform",
+    frontend_cfg=None,
 ) -> ArrayDataset:
     """Build the configured synthetic dataset split.
 
     kind="waveform" -> raw audio (the front-end runs on the device);
     kind="features" -> [N, T, 128] bottleneck protocol (trunk=none). The
-    reference's ``frontend_cfg`` argument is dropped: only its
-    ``synthetic_events`` corpus, not ported, reads it.
+    ``synthetic_events`` corpus reads its sample rate from ``frontend_cfg``
+    (16 kHz without one), as the reference's does.
     """
     name = data_cfg.dataset
     if name == "hdf5" or data_cfg.out_of_core:
@@ -113,14 +176,20 @@ def make_dataset(
             "(ROADMAP.md queue A, item 8: out-of-core / hdf5)")
     if name not in _DATASET_CLASSES:
         raise ValueError(f"unknown dataset {name!r}")
-    if name == "synthetic_events":
-        raise NotImplementedError(
-            "dataset='synthetic_events' is not ported yet "
-            "(ROADMAP.md queue A, item 8: train/sed_eval.py)")
     n = data_cfg.n_train_clips if split == "train" else data_cfg.n_eval_clips
     seed = 0 if split == "train" else 10_000
     multi = name == "synthetic_audioset"
-    if kind == "features":
+    if name == "synthetic_events":
+        # weakly supervised SED: the splits expose only the multi-hot clip
+        # labels; the boundaries stay held out (train/sed_eval.py scores on
+        # its own seed, 20_000)
+        if kind == "features":
+            raise ValueError("synthetic_events is a waveform corpus "
+                             "(trunk='none' has no patch grid to localize)")
+        x, y, _ = synth_event_waveforms(
+            n, n_classes, data_cfg.clip_seconds,
+            sample_rate=frontend_cfg.sample_rate if frontend_cfg else 16000, seed=seed)
+    elif kind == "features":
         x, y = synth_features(n, n_classes, multi_label=multi, seed=seed)
     else:
         x, y = synth_waveforms(

@@ -9,11 +9,15 @@ follows the flax modules: inputs and weights cast to ``dtype``, parameters
 stored in f32, batch norm evaluated in f32 and cast back. In train mode
 (``module.train()``) batch norm normalizes with the batch's statistics and
 updates its running ones as flax does; in eval mode it reads the running
-statistics.
+statistics. A forward that ``torch.utils.checkpoint`` re-runs in the
+backward (``remat_trunk``) runs under :func:`frozen_statistics`, where batch
+norm leaves its running statistics alone: the first pass moved them once, as
+flax's ``nn.remat`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -46,7 +50,10 @@ class _BatchNorm(nn.BatchNorm2d):
     running statistics by ``_BN_MOMENTUM`` with that biased variance; this
     is why the update is written here rather than left to F.batch_norm,
     whose running variance is unbiased. ``num_batches_tracked`` is not
-    touched."""
+    touched, and with ``update_stats`` False (:func:`frozen_statistics`) the
+    running statistics are not either."""
+
+    update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
@@ -54,15 +61,31 @@ class _BatchNorm(nn.BatchNorm2d):
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-            with torch.no_grad():
-                m = _BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = _BN_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module):
+    """Within the block, every batch norm of ``module`` normalizes as before
+    but leaves its running statistics alone: the re-run of a checkpointed
+    forward, whose first pass already moved them."""
+    norms = [m for m in module.modules() if isinstance(m, _BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 def _conv3x3(conv: nn.Conv2d, x: torch.Tensor, dt) -> torch.Tensor:

@@ -8,10 +8,12 @@ flat weight format maps onto the ``state_dict`` by rule
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from mla_tpu_torch._device import resolve_device
 from mla_tpu_torch.config import ModelConfig
@@ -21,7 +23,7 @@ from mla_tpu_torch.models.heads import (
     EmbeddedMapping,
     MultiHeadAttentionPool,
 )
-from mla_tpu_torch.models.trunk import CompactCNN, Dense, VGGish
+from mla_tpu_torch.models.trunk import CompactCNN, Dense, VGGish, frozen_statistics
 from mla_tpu_torch.ops.attention_pool import attention_timeline
 
 VARIANTS = (
@@ -39,9 +41,6 @@ class AudioTagger(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.remat_trunk:
-            raise NotImplementedError(
-                "remat_trunk=True is not ported yet (ROADMAP.md queue A, item 8: remat)")
         dtype = getattr(torch, cfg.compute_dtype)
         if cfg.trunk == "cnn":
             self.trunk_module = CompactCNN(cfg.conv_channels, cfg.convs_per_stage,
@@ -87,8 +86,22 @@ class AudioTagger(nn.Module):
         if self.trunk_module is None:
             return x
         b, t = x.shape[0], x.shape[1]
-        emb = self.trunk_module(x.reshape((b * t,) + tuple(x.shape[2:])))
+        flat = x.reshape((b * t,) + tuple(x.shape[2:]))  # patches into the batch axis
+        if self.cfg.remat_trunk and torch.is_grad_enabled():
+            # recompute the trunk's activations in the backward instead of
+            # keeping them (flax nn.remat in the reference). The re-run leaves
+            # batch norm's running statistics alone; the trunks draw no
+            # random numbers, so there is no RNG state to restore
+            emb = checkpoint(self.trunk_module, flat, use_reentrant=False,
+                             preserve_rng_state=False, context_fn=self._remat_contexts)
+        else:
+            emb = self.trunk_module(flat)
         return emb.reshape(b, t, -1)
+
+    def _remat_contexts(self):
+        """checkpoint's (first pass, re-run) contexts: the re-run freezes the
+        trunk's batch-norm statistics."""
+        return contextlib.nullcontext(), frozen_statistics(self.trunk_module)
 
     def head(self, h: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:

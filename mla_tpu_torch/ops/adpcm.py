@@ -6,13 +6,18 @@ samples (``mla_tpu/data/adpcm.py::_decode_jnp``, ``_decode2_jnp``); no Pallas
 kernel is involved. The port decodes in one hand-written kernel instead of
 a few hundred eager launches per call.
 
-``adpcm_decode`` launches a kernel for a CUDA tensor (or raises) and takes
-its plain torch version, ``adpcm_decode_reference``, only for a CPU tensor.
-The kernel has two variants: ``scan`` (each block decoded by up to 32
-lanes as a prefix scan over clamped-add maps) and ``serial`` (one lane per
-block). ``decode_variant`` picks one from the codes' width and the block,
-by what each measured on the card. ``LAUNCHES`` counts kernel launches,
-``LAUNCHES_BY_VARIANT`` per variant.
+``adpcm_decode`` calls the registered op ``torch.ops.mla_tpu_torch.adpcm_decode``
+(``torch.library.custom_op``), so a traced program (``torch.export``,
+``serve/export.py``) records the decode as one node. The op's CUDA
+implementation launches a kernel (or raises); its CPU implementation is the
+plain torch version, ``adpcm_decode_reference``; its fake implementation
+gives the output's shape to a trace. Importing this module registers the op,
+which is all a loader of an exported program needs. The kernel has two
+variants: ``scan`` (each block decoded by up to 32 lanes as a prefix scan
+over clamped-add maps) and ``serial`` (one lane per block).
+``decode_variant`` picks one from the codes' width and the block, by what
+each measured on the card; the pick is the op's string argument.
+``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_VARIANT`` per variant.
 """
 
 from __future__ import annotations
@@ -109,24 +114,13 @@ def adpcm_decode_reference(wire: torch.Tensor, n: Optional[int] = None, block: i
     return (out.to(torch.float32) / 32768.0).reshape(lead + (n,))
 
 
-def adpcm_decode(wire: torch.Tensor, n: Optional[int] = None, block: int = 256,
-                 bits: int = 4, *, _variant: Optional[str] = None) -> torch.Tensor:
-    """Wire [..., W] uint8 (``block``-sample units of ``bits``-bit codes) ->
-    float32 samples [..., n] in [-1, 1] (n=None: every decoded sample). A
-    CUDA tensor launches the kernel ``decode_variant`` picks on the current
-    stream; a CPU tensor takes the plain torch version. ``_variant``
-    ("scan" or "serial") overrides the pick, for timing the variants side
-    by side."""
+@torch.library.custom_op("mla_tpu_torch::adpcm_decode", mutates_args=(), device_types="cuda")
+def _adpcm_decode_op(wire: torch.Tensor, n: int, block: int, bits: int,
+                     variant: str) -> torch.Tensor:
+    """The op on a CUDA tensor: one launch of the ``variant`` kernel on the
+    current stream."""
     global LAUNCHES
-    if _variant is None:
-        _variant = decode_variant(bits, block)
-    if _variant not in LAUNCHES_BY_VARIANT:
-        raise ValueError(f"unknown variant {_variant!r}; pick from {sorted(LAUNCHES_BY_VARIANT)}")
     n_pad, n = _plan(wire, n, block, bits)
-    if wire.device.type == "cpu":
-        return adpcm_decode_reference(wire, n, block, bits)
-    if wire.device.type != "cuda":
-        raise ValueError(f"adpcm_decode runs on cuda or cpu, got {wire.device}")
     if not wire.is_contiguous():
         raise ValueError("adpcm_decode: wire must be contiguous")
     lead = wire.shape[:-1]
@@ -137,13 +131,43 @@ def adpcm_decode(wire: torch.Tensor, n: Optional[int] = None, block: int = 256,
         stream = torch.cuda.current_stream(wire.device).cuda_stream
         args = (wire.data_ptr(), out.data_ptr(), rows * (n_pad // block), n_pad // block, block,
                 n, bits)
-        launch = lib.mla_adpcm_decode_scan if _variant == "scan" else lib.mla_adpcm_decode
+        launch = lib.mla_adpcm_decode_scan if variant == "scan" else lib.mla_adpcm_decode
         err = launch(*args, stream)
     if err != 0:
-        raise RuntimeError(f"adpcm_decode {_variant} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"adpcm_decode {variant} kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    LAUNCHES_BY_VARIANT[_variant] += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
     return out
+
+
+@_adpcm_decode_op.register_kernel("cpu")
+def _adpcm_decode_op_cpu(wire: torch.Tensor, n: int, block: int, bits: int,
+                         variant: str) -> torch.Tensor:
+    return adpcm_decode_reference(wire, n, block, bits)
+
+
+@_adpcm_decode_op.register_fake
+def _adpcm_decode_op_fake(wire: torch.Tensor, n: int, block: int, bits: int,
+                          variant: str) -> torch.Tensor:
+    return wire.new_empty(tuple(wire.shape[:-1]) + (n,), dtype=torch.float32)
+
+
+def adpcm_decode(wire: torch.Tensor, n: Optional[int] = None, block: int = 256,
+                 bits: int = 4, *, _variant: Optional[str] = None) -> torch.Tensor:
+    """Wire [..., W] uint8 (``block``-sample units of ``bits``-bit codes) ->
+    float32 samples [..., n] in [-1, 1] (n=None: every decoded sample),
+    through the registered op. A CUDA tensor launches the kernel
+    ``decode_variant`` picks on the current stream; a CPU tensor takes the
+    plain torch version. ``_variant`` ("scan" or "serial") overrides the
+    pick, for timing the variants side by side."""
+    if _variant is None:
+        _variant = decode_variant(bits, block)
+    if _variant not in LAUNCHES_BY_VARIANT:
+        raise ValueError(f"unknown variant {_variant!r}; pick from {sorted(LAUNCHES_BY_VARIANT)}")
+    _, n = _plan(wire, n, block, bits)
+    if wire.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"adpcm_decode runs on cuda or cpu, got {wire.device}")
+    return torch.ops.mla_tpu_torch.adpcm_decode(wire, n, block, bits, _variant)
 
 
 def decode_bytes_moved(wire: torch.Tensor, n: int) -> int:

@@ -140,12 +140,30 @@ def dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
     raise ValueError(f"unknown precision {precision!r}; pick from {PRECISIONS}")
 
 
+def _bases_tensors(cfg: FrontendConfig, device: torch.device):
+    cos_b, sin_b, mel_t, _ = trimmed_spectral_bases(cfg)
+    return tuple(torch.tensor(a, device=device) for a in (cos_b, sin_b, mel_t))
+
+
 @functools.lru_cache(maxsize=16)
+def _cached_bases(cfg: FrontendConfig, device: torch.device):
+    return _bases_tensors(cfg, device)
+
+
 def device_bases(cfg: FrontendConfig, device: torch.device):
     """``trimmed_spectral_bases``' (cos, sin, mel) as f32 tensors on
-    ``device``, made once per (config, device)."""
-    cos_b, sin_b, mel_t, _ = trimmed_spectral_bases(cfg)
-    return tuple(torch.from_numpy(a).to(device) for a in (cos_b, sin_b, mel_t))
+    ``device``, copies that share no memory with the cached numpy arrays.
+    On a card they are made once per (config, device) and shared by every
+    call, so callers must not write into them. On the CPU each call gets its
+    own clones (a write cannot reach a later call), and inside a trace
+    (``torch.export``) fresh constants, so nothing traced is cached."""
+    device = torch.device(device)
+    if torch.compiler.is_compiling():
+        return _bases_tensors(cfg, device)
+    bases = _cached_bases(cfg, device)
+    if device.type == "cpu":
+        return tuple(t.clone() for t in bases)
+    return bases
 
 
 def log_mel_spectrogram(
@@ -160,7 +178,7 @@ def log_mel_spectrogram(
     if method == "fft":
         win = torch.from_numpy(periodic_hann(cfg.window_length)).to(x.device)
         mag = torch.fft.rfft(frames * win, n=cfg.fft_size, dim=-1).abs()
-        mel_w = torch.from_numpy(mel_filterbank(
+        mel_w = torch.tensor(mel_filterbank(
             cfg.num_mel_bins, cfg.num_spectrogram_bins, cfg.sample_rate,
             cfg.mel_min_hz, cfg.mel_max_hz)).to(x.device)
         return torch.log(dot(mag, mel_w, mel_prec) + cfg.log_offset)

@@ -4,11 +4,14 @@ process on one device.
 Kept from the reference: the synthetic datasets; a training set staged once
 on the device in float32, int16, uint8 or adpcm4 wire form, with each batch gathered
 there by index (the host sends an index vector per step, not the batch); a
-device-resident eval set; balanced or seeded-random draws; the log, eval
-and checkpoint cadence; ``auto_resume`` with the sampler or RNG state; and
-graceful preemption by ``request_preemption`` or SIGTERM / SIGINT. Not
-ported yet, and raising ``NotImplementedError`` that names its ROADMAP.md
-item: the grain pipeline, model or data parallelism beyond the one card,
+device-resident eval set; balanced or seeded-random draws, or the stateless
+balanced stream of ``data/pipeline.py`` (``data.pipeline="grain"``, a torch
+``DataLoader`` with ``data.grain_workers`` workers; batches are gathered on
+the host and uploaded in the staging wire form each step); the log, eval and
+checkpoint cadence; ``auto_resume`` with the sampler or RNG state, or the
+stream's position; and graceful preemption by ``request_preemption`` or
+SIGTERM / SIGINT. Not ported yet, and raising ``NotImplementedError`` that
+names its ROADMAP.md item: model or data parallelism beyond the one card,
 out-of-core / hdf5 data, TensorBoard.
 """
 
@@ -81,9 +84,6 @@ def _input_kind(ds: ArrayDataset, trunk: str) -> str:
 
 def _check_supported(cfg: Config) -> None:
     t, d = cfg.train, cfg.data
-    if d.pipeline == "grain":
-        raise NotImplementedError(
-            "data.pipeline='grain' is not ported yet (ROADMAP.md queue A, item 8: grain)")
     if t.model_parallel != 1:
         raise NotImplementedError(
             "train.model_parallel > 1 is not ported yet (ROADMAP.md queue A, item 9)")
@@ -160,8 +160,8 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
             logger.info(msg)
 
     kind = "features" if cfg.model.trunk == "none" else "waveform"
-    train_ds = make_dataset(cfg.data, cfg.model.n_classes, "train", kind)
-    eval_ds = make_dataset(cfg.data, cfg.model.n_classes, "eval", kind)
+    train_ds = make_dataset(cfg.data, cfg.model.n_classes, "train", kind, cfg.frontend)
+    eval_ds = make_dataset(cfg.data, cfg.model.n_classes, "eval", kind, cfg.frontend)
     input_kind = _input_kind(train_ds, cfg.model.trunk)
     stage = cfg.data.staging_dtype
     if stage != "float32" and input_kind != "waveform":
@@ -175,8 +175,9 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     train_step = make_train_step(cfg, model, input_kind, clip_samples=clip_samples)
     eval_step = make_eval_step(cfg, model, input_kind)
 
+    use_grain = cfg.data.pipeline == "grain"
     sampler = (BalancedSampler(train_ds.y, bs, cfg.train.seed)
-               if cfg.data.balanced_sampling else None)
+               if cfg.data.balanced_sampling and not use_grain else None)
     # device-resident training set: staged once in its wire form, each batch
     # gathered on the device by index (and decoded inside the train step).
     # The wire form is sized from the shapes first, so a set too large for
@@ -188,7 +189,8 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         data_bytes = per_row * int(train_ds.x.shape[0]) + int(train_ds.y.nbytes)
     else:
         data_bytes = int(train_ds.x.nbytes) + int(train_ds.y.nbytes)
-    use_device_data = cfg.data.device_resident and data_bytes <= cfg.data.device_resident_max_bytes
+    use_device_data = (cfg.data.device_resident and not use_grain
+                       and data_bytes <= cfg.data.device_resident_max_bytes)
     x_all = y_all = eval_x_dev = None
     if use_device_data:
         x_all = torch.from_numpy(_encode(train_ds.x, stage)).to(dev)
@@ -214,6 +216,15 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         start_step = state.step
         say(f"auto-resumed from checkpoint at step {start_step}")
 
+    grain_it = None
+    if use_grain:
+        from mla_tpu_torch.data.pipeline import make_train_iterator
+
+        # the stream is a pure function of (seed, position): resuming starts
+        # it at batch index start_step
+        grain_it = make_train_iterator(train_ds, bs, cfg.train.seed, cfg.data.grain_workers,
+                                       start_index=start_step)
+
     last_saved = -1
 
     def save_ckpt(step: int):
@@ -221,9 +232,12 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         if step == last_saved:  # preempted right after a periodic save
             return
         last_saved = step
-        samp_st = (sampler.state_dict() if sampler is not None
-                   else {"pipeline": "random", "step": step,
-                         "rng_state": rng.bit_generator.state})
+        if sampler is not None:
+            samp_st = sampler.state_dict()
+        elif use_grain:  # stateless: the position is the training step
+            samp_st = {"pipeline": "grain", "seed": cfg.train.seed, "step": step}
+        else:
+            samp_st = {"pipeline": "random", "step": step, "rng_state": rng.bit_generator.state}
         ckpt.save(step, state, samp_st, config=dataclasses.asdict(cfg))
 
     _PREEMPTED.clear()
@@ -236,11 +250,17 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     clips_done = 0
     try:
         for step_i in range(start_step, cfg.train.num_steps):
-            idx = sampler.next_batch() if sampler else rng.integers(0, len(train_ds.x), bs)
-            if use_device_data:
+            if grain_it is not None:
+                bx, by = next(grain_it)
+                x = torch.from_numpy(_encode(bx, stage) if input_kind == "waveform"
+                                     else np.asarray(bx)).to(dev)
+                y = torch.from_numpy(np.asarray(by, np.float32)).to(dev)
+            elif use_device_data:
+                idx = sampler.next_batch() if sampler else rng.integers(0, len(train_ds.x), bs)
                 idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
                 x, y = x_all.index_select(0, idx_t), y_all.index_select(0, idx_t)
             else:
+                idx = sampler.next_batch() if sampler else rng.integers(0, len(train_ds.x), bs)
                 bx = take_rows(train_ds, idx)
                 x = torch.from_numpy(_encode(bx, stage) if input_kind == "waveform"
                                      else np.asarray(bx)).to(dev)
@@ -280,6 +300,8 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         # would swallow Ctrl-C for the rest of the process
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
+        if grain_it is not None:
+            grain_it.close()  # stops the loader's workers
         ckpt.wait()
         writer.close()
     result.state = state

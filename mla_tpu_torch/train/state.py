@@ -2,8 +2,9 @@
 ``mla_tpu/train/state.py``).
 
 One train step: decode the staged wire form -> front-end (outside autograd;
-``impl="pallas"`` launches the fused kernel) -> train-mode forward (batch
-statistics, dropout) -> BCE -> backward -> global-norm clip -> Adam at the
+``impl="pallas"`` launches the fused kernel) -> mixup, then SpecAugment on
+waveform or patch input (``ops/augment.py``), when the config asks ->
+train-mode forward (batch statistics, dropout) -> BCE -> backward -> global-norm clip -> Adam at the
 scheduled learning rate -> EMA. PyTorch updates in place, so the step
 mutates the ``TrainState`` it is given and returns it with the loss.
 
@@ -28,6 +29,7 @@ from mla_tpu_torch.config import Config
 from mla_tpu_torch.data.adpcm import DEFAULT_BLOCK
 from mla_tpu_torch.data.audio_io import mulaw_decode
 from mla_tpu_torch.models.zoo import AudioTagger
+from mla_tpu_torch.ops import augment
 from mla_tpu_torch.ops import frontend as fe
 from mla_tpu_torch.ops.adpcm import adpcm_decode
 
@@ -139,6 +141,14 @@ def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Gener
     return torch.Generator(device=device).manual_seed(mixed)
 
 
+def augment_generator(seed: int, step: int, stream: int, device: torch.device) -> torch.Generator:
+    """The generator a train step draws one augmentation from (stream 1
+    SpecAugment, 2 mixup, the reference's ``fold_in`` salts): a pure function
+    of (train.seed, step, stream), apart from the dropout generator's."""
+    mixed = int(np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
 def make_train_step(
     cfg: Config, model: AudioTagger, input_kind: str, clip_samples: Optional[int] = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
@@ -146,12 +156,7 @@ def make_train_step(
     waveform [B, n] (float32 or the staged wire form) or a feature sequence
     [B, T, D] per ``input_kind``; the loss stays on the device."""
     t_cfg = cfg.train
-    if t_cfg.mixup_alpha > 0:
-        raise NotImplementedError(
-            "train.mixup_alpha > 0 is not ported yet (ROADMAP.md queue A, item 8: ops/augment.py)")
-    if t_cfg.spec_augment and input_kind in ("waveform", "patches"):
-        raise NotImplementedError(
-            "train.spec_augment is not ported yet (ROADMAP.md queue A, item 8: ops/augment.py)")
+    spec = t_cfg.spec_augment and input_kind in ("waveform", "patches")
     front_cfg = cfg.frontend
     if t_cfg.frontend_precision is not None:
         front_cfg = dataclasses.replace(front_cfg, precision=t_cfg.frontend_precision)
@@ -166,7 +171,15 @@ def make_train_step(
                                          front_cfg)
         else:
             x_in = x
-        gen = dropout_generator(t_cfg.seed, state.step, x_in.device)
+        dev = x_in.device
+        if t_cfg.mixup_alpha > 0:
+            x_in, y = augment.mixup(x_in, y, augment_generator(t_cfg.seed, state.step, 2, dev),
+                                    t_cfg.mixup_alpha)
+        if spec:
+            x_in = augment.spec_augment(
+                x_in, augment_generator(t_cfg.seed, state.step, 1, dev),
+                time_mask_width=t_cfg.time_mask_width, freq_mask_width=t_cfg.freq_mask_width)
+        gen = dropout_generator(t_cfg.seed, state.step, dev)
         model.train()
         loss = bce_loss(model(x_in, gen), y)
         opt = state.optimizer

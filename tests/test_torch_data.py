@@ -47,10 +47,13 @@ def test_class_frequency_and_unported_datasets():
         assert synthetic.class_frequency(k, 10) == jsyn.class_frequency(k, 10)
     cfg = get_config("us8k_fused_frontend")
     for data, what in [({"dataset": "hdf5"}, "out-of-core / hdf5"),
-                       ({"out_of_core": True}, "out-of-core / hdf5"),
-                       ({"dataset": "synthetic_events"}, "sed_eval")]:
+                       ({"out_of_core": True}, "out-of-core / hdf5")]:
         with pytest.raises(NotImplementedError, match=what):
             synthetic.make_dataset(dataclasses.replace(cfg.data, **data), 10)
+    # synthetic_events is ported (tests/test_torch_sed.py holds it bit-identical)
+    events = synthetic.make_dataset(dataclasses.replace(cfg.data, dataset="synthetic_events",
+                                                        n_train_clips=2), 10)
+    assert events.x.shape == (2, 64000) and events.kind == "waveform"
     with pytest.raises(ValueError, match="unknown dataset"):
         synthetic.make_dataset(dataclasses.replace(cfg.data, dataset="nope"), 10)
 

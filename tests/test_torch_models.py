@@ -200,9 +200,11 @@ def test_timeline_matches_jax(variant):
 
 @pytest.mark.parametrize("override,what", [({"model.remat_trunk": True}, "remat")])
 def test_unported_options_raise(override, what):
+    """remat_trunk, once unported, now builds (tests/test_torch_remat.py
+    holds it against the plain trunk and JAX's remat)."""
     _, tcfg = configs(override)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        build_model(tcfg.model, device="cpu")
+    model = build_model(tcfg.model, device="cpu", seed=0)
+    assert model.cfg.remat_trunk
 
 
 def test_build_model_device_rule():

@@ -302,16 +302,25 @@ def test_front_end_kernel_refuses_a_waveform_that_requires_grad():
 @pytest.mark.parametrize("override,what", [({"train.mixup_alpha": 0.2}, "mixup"),
                                            ({"train.spec_augment": True}, "spec_augment")])
 def test_unported_augmentation_raises(override, what):
+    """mixup and SpecAugment, once unported, now build a step that runs
+    (tests/test_torch_augment.py holds them against JAX)."""
     _, tcfg = _configs(override)
-    model = build_model(tcfg.model, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        tstate.make_train_step(tcfg, model, "waveform")
+    model = build_model(tcfg.model, device="cpu", seed=0)
+    step = tstate.make_train_step(tcfg, model, "waveform")
+    x = torch.from_numpy((np.random.default_rng(0).standard_normal((2, N_SAMPLES)) * 0.1)
+                         .astype(np.float32))
+    _, loss = step(tstate.create_train_state(tcfg, model), x, torch.eye(2, tcfg.model.n_classes))
+    assert np.isfinite(float(loss))
 
 
 def test_remat_trunk_raises():
+    """remat_trunk, once unported, now builds a model whose train step runs."""
     _, tcfg = _configs({"model.remat_trunk": True})
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP"):
-        build_model(tcfg.model, device="cpu")
+    model = build_model(tcfg.model, device="cpu", seed=0)
+    step = tstate.make_train_step(tcfg, model, "waveform")
+    x = torch.zeros((2, N_SAMPLES))
+    _, loss = step(tstate.create_train_state(tcfg, model), x, torch.eye(2, tcfg.model.n_classes))
+    assert np.isfinite(float(loss))
 
 
 @pytest.fixture
