@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero without
 printing its last line:
   1. device: the card's name, power limit and compute capability (9, 0), and
-     whether h5py and tensorboard import on this machine;
+     whether h5py, tensorboard, tensorflow, matplotlib and sklearn import on
+     this machine;
   2. build: every kernel source in mla_tpu_torch/csrc (fused_frontend.cu,
      row_merge.cu, adpcm.cu), one nvcc each, all started together, timed,
      with nvcc's ptxas report;
@@ -114,12 +115,33 @@ printing its last line:
      tick in turns (int16 with the ring off and on, adpcm4), and one train
      step; each kernel's bound; and torch.profiler breakdowns (device busy,
      idle share, host-to-device copies per tick) of ten ticks of each kind
-     and five train steps.
+     and five train steps;
+  8a. the doctor: `python -m mla_tpu_torch doctor` as a subprocess, its
+     report printed; no-device, a card other than (9, 0), a check in error or
+     a build that does not load fails the phase, a degraded verdict is
+     printed with its reasons (GEMM TFLOPS and repeat spread, fetch RTT,
+     TF32 flags);
+  8b. the parity harness: parity.run_all() in process on the card, every
+     check line printed, none failed (metrics_vs_sklearn may be skipped
+     where sklearn does not import), frontend_pallas through one mma launch,
+     and the caller's TF32 flags (turned on for it) read the same after;
+     then `python -m mla_tpu_torch parity` as a subprocess, exit 0;
+  8c. fit() on us8k_fused_frontend as shipped, cut to 10 steps, with
+     train.tensorboard: the event file read back with EventAccumulator has
+     the tags, steps and values (as f32) of scalars.csv; one mma launch per
+     step and eval batch;
+  8d. the same preset streamed on the adpcm4 wire (data.device_resident
+     false: each batch gathered and encoded on the host, uploaded, decoded
+     by the scan kernel), 10 steps: finite losses, one scan decode and one
+     mma launch per step (plus one mma per eval batch); then its step in
+     turns with the resident adpcm4 step on the same batch, host ms, device
+     busy and idle share of each (the card's side of an out-of-core set).
 Launch counts are set to 0 just before each path (probe, serving on each
 wire, the ring, packed and reload serving paths, the two fronts' soaks and the
 reload soak, each exported artifact's run, training, adpcm4-staged
 training, the flagship forward and train steps, the augmented fit, the SED
-harness) is driven and read just after. The script prints the card's line
+harness, the parity harness, the TensorBoard fit, the streamed fit) is
+driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
 build/chip_smoke.json.
@@ -129,6 +151,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import csv
 import dataclasses
 import io
 import json
@@ -1166,6 +1189,204 @@ def _train_leftovers(state_dict, fwav, fy, zero_counts, tag):
     return rec, fe_paths
 
 
+# phases 8c and 8d: us8k_fused_frontend as shipped, cut only in steps and
+# cadence; 8c with the TensorBoard sink, 8d streamed (not device-resident)
+# on the adpcm4 wire, each batch encoded on the host, uploaded and decoded
+TB_TRAIN_CUT = {"train.num_steps": 10, "train.eval_every": 10, "train.checkpoint_every": 0,
+                "train.log_every": 1, "train.tensorboard": True}
+STREAM_TRAIN_CUT = {"train.num_steps": 10, "train.eval_every": 10,
+                    "train.checkpoint_every": 0, "train.log_every": 1,
+                    "data.device_resident": False, "data.staging_dtype": "adpcm4"}
+STREAM_REPS = 10  # streamed and resident steps timed in turns (a streamed step encodes ~0.3 s)
+
+
+def _module_main(args, timeout):
+    """`python -m mla_tpu_torch <args>` from the checkout: (exit code, stdout)."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    r = subprocess.run([sys.executable, "-m", "mla_tpu_torch", *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode not in (0, 1):
+        raise RuntimeError(f"python -m mla_tpu_torch {' '.join(args)}: exit {r.returncode}\n"
+                           f"{r.stderr[-4000:]}")
+    return r.returncode, r.stdout
+
+
+def _doctor_parity_logging(zero_counts, tag):
+    """Phases 8a-8d: the doctor verb (a subprocess; no-device, a card other
+    than sm_90 or a check that errs fails the phase, degraded is printed
+    with its reasons); the parity harness in process on the card (every
+    check passes, frontend_pallas through one mma launch, the caller's TF32
+    flags back after it) and the parity verb as a subprocess (exit 0); a
+    TensorBoard fit whose event file equals scalars.csv, one mma launch per
+    step and eval batch; a streamed adpcm4 fit, one scan decode and one mma
+    launch per step, then its step in turns with the resident adpcm4 step
+    (host ms, profiles, idle share). Returns (record, {path: front-end
+    launches by variant}, {path: decode launches by variant})."""
+    from mla_tpu_torch import _device, parity
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.data import adpcm
+    from mla_tpu_torch.data.ooc import take_rows
+    from mla_tpu_torch.data.sampler import BalancedSampler
+    from mla_tpu_torch.data.synthetic import make_dataset
+    from mla_tpu_torch.ops import adpcm as ad
+    from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.train import loop
+    from mla_tpu_torch.train.state import make_train_step
+
+    rec, fe_paths, dec_paths = {}, {}, {}
+
+    # 8a. the doctor
+    t0 = time.perf_counter()
+    rc, out = _module_main(["doctor"], timeout=600)
+    report = json.loads(out.strip().splitlines()[-1])
+    verdict = report["verdict"]
+    print(f"doctor: exit {rc}, verdict {verdict['status']} in {time.perf_counter() - t0:.1f} s; "
+          f"reasons {verdict['reasons']}")
+    print(f"doctor: devices {report['devices']}; versions {report.get('versions')}")
+    for key in ("fetch_rtt", "synchronize", "compile", "matmul_precision", "gemm"):
+        print(f"doctor: {key} {json.dumps(report.get(key))}")
+    caps = [tuple(d.get("capability", ())) for d in report["devices"]]
+    errors = [k for k, v in report.items() if isinstance(v, dict) and "error" in v]
+    if verdict["status"] == "no-device" or caps[:1] != [(9, 0)] or errors \
+            or not report["compile"]["builds_ok"]:
+        raise RuntimeError(f"doctor: {verdict}, capabilities {caps}, checks in error {errors}, "
+                           f"builds {report['compile'].get('builds')}")
+    gemm = report["gemm"]
+    print(f"doctor: f32 GEMM {gemm['n']}^3 x {gemm['iters']} at the default flags: "
+          f"{gemm['tflops']:.4f} TFLOP/s, repeat spread {gemm['rel_spread']:.4f} (times "
+          f"{gemm['times_s']} s); fetch RTT median {report['fetch_rtt']['median_ms']:.4f} ms "
+          f"{tag}")
+    rec["doctor"] = {"exit": rc, **report}
+
+    # 8b. the parity harness: in process on the card, then the verb. The
+    # caller's TF32 flags (set on here) must read the same after it.
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    flags = _device.tf32_flags()
+    zero_counts()
+    t0 = time.perf_counter()
+    results = parity.run_all()
+    torch.cuda.synchronize()
+    parity_s = time.perf_counter() - t0
+    fe_l = dict(ff.LAUNCHES_BY_VARIANT)
+    after = _device.tf32_flags()
+    torch.set_float32_matmul_precision("highest")  # back to the script's own setting
+    torch.backends.cudnn.allow_tf32 = False
+    for r in results:
+        print(f"parity: {json.dumps(r)}")
+    failed = [r for r in results if r["pass"] is False]
+    skipped = [r["check"] for r in results if r["pass"] is None]
+    print(f"parity: {len(results)} checks in {parity_s:.2f} s, skipped {skipped}; "
+          f"fused_log_mel_patches launches {fe_l}; TF32 flags before {flags}, after {after} "
+          f"{tag}")
+    if failed or fe_l != {"mma": 1, "simt": 0} or after != flags:
+        raise RuntimeError(f"parity: failed {failed}, launches {fe_l}, flags {flags} -> {after}")
+    fe_paths["parity"] = fe_l
+    rc, out = _module_main(["parity"], timeout=600)
+    print(f"parity verb: exit {rc}")
+    for line in out.strip().splitlines():
+        print(f"parity verb: {line}")
+    if rc != 0:
+        raise RuntimeError(f"the parity verb exited {rc}")
+    rec["parity"] = {"results": results, "s": parity_s, "skipped": skipped,
+                     "tf32_before": flags, "tf32_after": after, "verb_exit": rc}
+
+    # 8c. fit with the TensorBoard sink: the event file against scalars.csv
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    tcfg = get_config("us8k_fused_frontend", TB_TRAIN_CUT)
+    ws = os.path.join(ROOT, "build", "chip_smoke_train_tb")
+    shutil.rmtree(ws, ignore_errors=True)
+    zero_counts()
+    res = loop.fit(tcfg, workspace=ws)
+    torch.cuda.synchronize()
+    counts, fe_l = dict(res.counts), dict(ff.LAUNCHES_BY_VARIANT)
+    with open(os.path.join(ws, "scalars.csv"), newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    want = {}
+    for r in rows:
+        want.setdefault(r["key"], []).append((int(r["step"]),
+                                              float(np.float32(float(r["value"])))))
+    ea = EventAccumulator(os.path.join(ws, "tensorboard", tcfg.name), size_guidance={"scalars": 0})
+    ea.Reload()
+    got = {t: [(e.step, float(np.float32(e.value))) for e in ea.Scalars(t)]
+           for t in ea.Tags()["scalars"]}
+    print(f"TensorBoard fit: {counts['train_steps']} train steps + {counts['eval_batches']} "
+          f"eval batches, fused_log_mel_patches launches {fe_l}; event file tags "
+          f"{sorted(got)}, {sum(len(v) for v in got.values())} scalars against "
+          f"{len(rows)} CSV rows; losses {[h['loss'] for h in res.history]}")
+    if got != want or not rows:
+        raise RuntimeError(f"TensorBoard events differ from scalars.csv: {got} against {want}")
+    if counts["train_steps"] != tcfg.train.num_steps \
+            or fe_l != {"mma": counts["train_steps"] + counts["eval_batches"], "simt": 0}:
+        raise RuntimeError(f"TensorBoard fit: {counts}, launches {fe_l}")
+    fe_paths["train_tensorboard"] = fe_l
+    rec["tensorboard_fit"] = {"counts": counts, "frontend_launches": fe_l,
+                              "tags": sorted(got), "scalars": sum(len(v) for v in got.values())}
+
+    # 8d. the streamed adpcm4 feed: what an out-of-core set puts on the card
+    scfg = get_config("us8k_fused_frontend", STREAM_TRAIN_CUT)
+    ws = os.path.join(ROOT, "build", "chip_smoke_train_streamed")
+    shutil.rmtree(ws, ignore_errors=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = loop.fit(scfg, workspace=ws)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, fe_l, dec_l = dict(res.counts), dict(ff.LAUNCHES_BY_VARIANT), \
+        dict(ad.LAUNCHES_BY_VARIANT)
+    losses = [h["loss"] for h in res.history]
+    picked = ad.decode_variant(4, adpcm.DEFAULT_BLOCK)
+    print(f"streamed adpcm4 fit: {counts['train_steps']} train steps + {counts['eval_batches']} "
+          f"eval batches in {fit_s:.2f} s, adpcm_decode launches {dec_l}, fused_log_mel_patches "
+          f"launches {fe_l}; losses {losses}")
+    if counts["train_steps"] != scfg.train.num_steps or not np.isfinite(losses).all() \
+            or dec_l != {**dict.fromkeys(("scan", "serial"), 0), picked: counts["train_steps"]} \
+            or fe_l != {"mma": counts["train_steps"] + counts["eval_batches"], "simt": 0}:
+        raise RuntimeError(f"streamed adpcm4 fit: {counts}, decode {dec_l}, front-end {fe_l}, "
+                           f"losses {losses}")
+    fe_paths["train_streamed_adpcm4"] = fe_l
+    dec_paths["train_streamed_adpcm4"] = dec_l
+    # its step in turns with the resident adpcm4 step phase 6 runs: the same
+    # batch, streamed (gather on the host, encode, upload) or gathered from
+    # the wire staged on the card
+    ds = make_dataset(scfg.data, scfg.model.n_classes, "train", "waveform")
+    idx = BalancedSampler(ds.y, scfg.train.batch_size, scfg.train.seed).next_batch()
+    wire_all = torch.from_numpy(loop._encode(ds.x, "adpcm4")).cuda()
+    idx_t = torch.from_numpy(np.asarray(idx, np.int64)).cuda()
+    y = torch.from_numpy(np.asarray(ds.y[idx], np.float32)).cuda()
+    state = res.state
+    step = make_train_step(scfg, state.model, "waveform", clip_samples=ds.x.shape[1])
+
+    def streamed():
+        x = torch.from_numpy(loop._encode(take_rows(ds, idx), "adpcm4")).cuda()
+        step(state, x, y)
+
+    def resident():
+        step(state, wire_all.index_select(0, idx_t), y)
+
+    turns, _ = _in_turns({"streamed": streamed, "resident": resident}, reps=STREAM_REPS,
+                         warmup=2)
+    n_prof = 5
+    profs = {k: _report_profile(f"{k} adpcm4 train step", n_prof, turns[k],
+                                _profile(fn, n_prof), tag)
+             for k, fn in (("streamed", streamed), ("resident", resident))}
+    encode_ms = _host_median_ms(lambda: loop._encode(take_rows(ds, idx), "adpcm4"),
+                                reps=STREAM_REPS, warmup=1)
+    print(f"time: adpcm4 train step, batch {scfg.train.batch_size} x {ds.x.shape[1]} samples, "
+          f"host clock in turns ({STREAM_REPS} each): streamed {turns['streamed']:.4f} ms "
+          f"(host gather + encode alone {encode_ms:.4f} ms), resident {turns['resident']:.4f} "
+          f"ms; device busy {profs['streamed']['device_busy_ms']} against "
+          f"{profs['resident']['device_busy_ms']} ms; idle share "
+          f"{profs['streamed']['idle_share']} against {profs['resident']['idle_share']} {tag}")
+    rec["streamed_adpcm4"] = {"counts": counts, "fit_s": fit_s, "losses": losses,
+                              "decode_launches": dec_l, "frontend_launches": fe_l,
+                              "turns_ms": turns, "encode_ms": encode_ms, "profiles": profs}
+    del wire_all, state, step
+    torch.cuda.empty_cache()
+    return rec, fe_paths, dec_paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs the port on "
@@ -1209,9 +1430,10 @@ def main() -> int:
         raise RuntimeError(f"the kernels are built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
     record["card"] = card
     tag = f"({card})"
-    # what this machine offers the next slice's hdf5 reader and TensorBoard sink
+    # what this machine offers the hdf5 reader, the TensorBoard sink, the
+    # parity harness's metrics check and the verbs still to port
     record["packages"] = {}
-    for mod in ("h5py", "tensorboard"):
+    for mod in ("h5py", "tensorboard", "tensorflow", "matplotlib", "sklearn"):
         r = subprocess.run([sys.executable, "-c", f"import {mod}; print({mod}.__version__)"],
                            capture_output=True, text=True, timeout=120)
         found = r.stdout.strip() if r.returncode == 0 else None
@@ -2214,6 +2436,14 @@ def main() -> int:
                   peak_memory_gb=peak_gb, adpcm4_tick_ms=atick_med,
                   adpcm4_tick_profile=atick_prof)
 
+    # 8. the doctor, the parity harness, the TensorBoard sink and the
+    # streamed adpcm4 feed
+    phase8, phase8_fe, phase8_dec = _doctor_parity_logging(zero_counts, tag)
+    record["phase8"] = phase8
+    dec_by_path.update(phase8_dec)
+    dec_launches_by_variant = {v: sum(p[v] for p in dec_by_path.values())
+                               for v in DECODE_VARIANTS}
+
     main_probe = _probe_key(*PROBE_CASES[0][:3])
     # the front-end kernel's launches on every path that takes it
     fe_by_path = {"serve": serve_by_variant, "train": train_by_variant,
@@ -2221,7 +2451,7 @@ def main() -> int:
                   "serve_adpcm2": {"mma": adpcm_serve["adpcm2"]["frontend_launches"], "simt": 0},
                   **{p: r["frontend_launches"] for p, r in new_paths.items()},
                   "train_adpcm4": a_fe, **leftover_fe, "flagship_forward": fwd_launches,
-                  "flagship_train": flagship["pallas"]["frontend_launches"]}
+                  "flagship_train": flagship["pallas"]["frontend_launches"], **phase8_fe}
     kernels = [{
         "name": "fused_log_mel_patches",
         "variant": "mma",

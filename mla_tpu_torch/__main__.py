@@ -1,6 +1,6 @@
 """CLI of the PyTorch port (counterpart of ``mla_tpu/__main__.py``). The
-``train``, ``serve``, ``tag`` and ``export`` verbs are ported so far
-(ROADMAP.md queue A, item 10 lists the rest):
+``train``, ``serve``, ``tag``, ``export``, ``cv``, ``parity`` and ``doctor``
+verbs are ported so far (ROADMAP.md queue A, item 10 lists the rest):
 
     python -m mla_tpu_torch train --config us8k_fused_frontend [--set k=v ...]
                                   [--workspace W] [--resume] [--device cpu]
@@ -11,6 +11,10 @@
                                 [--wire adpcm4] [--top_k 5]
     python -m mla_tpu_torch export --out model.mlxt [--streaming]
                                    [--input_dtype adpcm4] [--batch 8] [--device cpu] ...
+    python -m mla_tpu_torch cv --wav_dir D --labels_csv meta.csv [--folds 1,2]
+                               [--set k=v ...] [--device cpu]
+    python -m mla_tpu_torch parity [--device cpu]
+    python -m mla_tpu_torch doctor [--quick] [--device_timeout 120] [--device cpu]
 
 ``train``, ``serve`` and ``export`` run on the card (``--device cpu`` asks
 for the CPU). ``train`` prints one JSON line: the final logged loss and the
@@ -18,7 +22,10 @@ last eval stats. ``serve`` prints ``serving <variant> on
 http://host:port/v1 (...)`` and serves until interrupted; ``tag`` tags a wav
 through a running service and prints its top-k as one JSON line; ``export``
 writes a ``torch.export`` artifact (``serve/export.py``) and prints its
-header as one JSON line.
+header as one JSON line. ``cv`` runs the fold rotation on the card and prints
+the per-fold and mean / std stats as one JSON line; ``parity`` prints one
+JSON line per check and exits 1 when one that ran failed; ``doctor`` prints
+one JSON report and exits 0 (ok), 1 (degraded) or 2 (no device).
 """
 
 from __future__ import annotations
@@ -229,6 +236,40 @@ def cmd_tag(args):
     print(_jdump({"top_k": [[n, float(p)] for n, p in top]}))
 
 
+def cmd_cv(args):
+    """k-fold cross-validation: pack each fold rotation once, run fit() per
+    held-out fold on --device, print the per-fold and mean / std final eval
+    metrics (the ESC-50 / UrbanSound8K protocol)."""
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.train.cv import cross_validate
+
+    cfg = get_config(args.config, _parse_sets(args.set))
+    folds = [int(f) for f in args.folds.split(",")] if args.folds else None
+    out = cross_validate(cfg, args.wav_dir, args.labels_csv,
+                         workspace=args.workspace or cfg.workspace, folds=folds,
+                         log=not args.quiet, device=args.device)
+    print(_jdump(out))
+
+
+def cmd_parity(args):
+    """The parity harness on --device: one JSON line per check; exit 1 when
+    a check that ran failed."""
+    from mla_tpu_torch import parity
+
+    return parity.main(device=args.device)
+
+
+def cmd_doctor(args):
+    """Environment self-check: prints one JSON report; exit 0 = ok,
+    1 = degraded, 2 = no device."""
+    from mla_tpu_torch.utils import doctor
+
+    report = doctor.run(device=args.device, device_timeout_s=args.device_timeout,
+                        quick=args.quick)
+    print(_jdump(report))
+    return {"ok": 0, "degraded": 1, "no-device": 2}[report["verdict"]["status"]]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mla_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -327,9 +368,36 @@ def main(argv=None):
                     help="torch device the program is exported on; default the card "
                          "(raises without one)")
     sx.set_defaults(fn=cmd_export)
+
+    sc = sub.add_parser("cv", help="k-fold cross-validation (ESC-50 / US8K protocol)")
+    sc.add_argument("--config", default="esc50_single_attention")
+    sc.add_argument("--wav_dir", required=True, help="wav corpus root")
+    sc.add_argument("--labels_csv", required=True, help="metadata CSV with a 'fold' column")
+    sc.add_argument("--workspace", default=None)
+    sc.add_argument("--folds", default=None,
+                    help="comma-separated held-out folds to run (default: all)")
+    sc.add_argument("--quiet", action="store_true")
+    sc.add_argument("--set", nargs="*")
+    sc.add_argument("--device", default=None,
+                    help="torch device; default the card (raises without one)")
+    sc.set_defaults(fn=cmd_cv)
+
+    sy = sub.add_parser("parity", help="run the reference-parity harness")
+    sy.add_argument("--device", default=None,
+                    help="torch device; default the card (raises without one)")
+    sy.set_defaults(fn=cmd_parity)
+
+    sd = sub.add_parser("doctor", help="environment self-check (device probe, fetch RTT, "
+                        "synchronize, builds, TF32 flags, exclusive-card spread)")
+    sd.add_argument("--quick", action="store_true", help="skip the GEMM throughput spot check")
+    sd.add_argument("--device_timeout", type=float, default=120.0,
+                    help="seconds before the device probe is declared hung")
+    sd.add_argument("--device", default=None,
+                    help="check this torch device (default the card; 'cpu' checks the host)")
+    sd.set_defaults(fn=cmd_doctor)
     args = p.parse_args(argv)
-    args.fn(args)
-    return 0
+    rc = args.fn(args)
+    return 0 if rc is None else rc
 
 
 if __name__ == "__main__":

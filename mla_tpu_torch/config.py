@@ -192,7 +192,8 @@ class TrainConfig:
     # failure class; there is no shared-memory race surface under XLA)
     debug_nans: bool = False
     # optional TensorBoard event-file sink next to the CSV scalars
-    # (workspace/tensorboard/<config name>; needs tensorflow importable)
+    # (workspace/tensorboard/<config name>; torch.utils.tensorboard, which
+    # needs the tensorboard package: without it, CSV only and a warning)
     tensorboard: bool = False
     # front-end DFT precision inside the TRAIN step only (None = inherit
     # frontend.precision). "default" (bf16) is ~6x cheaper and training is

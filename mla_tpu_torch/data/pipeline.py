@@ -22,6 +22,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch.utils.data
 
+from mla_tpu_torch.data.ooc import take_rows
 from mla_tpu_torch.data.synthetic import ArrayDataset
 
 _UNBOUNDED = 2 ** 62  # the stream's length: positions never run out
@@ -96,7 +97,7 @@ class _Batches(torch.utils.data.Dataset):
 
     def __getitem__(self, k: int):
         idx = np.array([self.stream.index_at(p) for p in self.positions(int(k))], np.int64)
-        return self.ds.x[idx], self.ds.y[idx]
+        return take_rows(self.ds, idx), self.ds.y[idx]
 
 
 def _as_is(item):
@@ -117,7 +118,8 @@ def make_train_iterator(
 
     ``workers`` > 0 gathers batches in that many ``DataLoader`` worker
     processes, spawned (a fresh interpreter each, the dataset pickled to it:
-    forking a process that runs CUDA and other threads is unsafe), each
+    forking a process that runs CUDA and other threads is unsafe; an
+    out-of-core reader pickles as its path and opens the pack there), each
     running ``read_buffer_batches`` batches ahead (the order stays the
     stream's). ``start_index`` (in global batches) resumes in O(1): the
     stream is a pure function of absolute position. With

@@ -158,11 +158,31 @@ _DATASET_CLASSES = {"synthetic_esc50": 50, "synthetic_us8k": 10,
                     "synthetic_audioset": 527, "synthetic_events": None}
 
 
+def _hdf5_paths(path: str):
+    """``data.hdf5_path`` names one pack, a comma-separated list, or a glob
+    pattern (sharded packs, e.g. bal_train + unbal_train); rows concatenate
+    in list / sorted-glob order for both the in-RAM and out-of-core readers."""
+    if "," in path:
+        paths = [p.strip() for p in path.split(",") if p.strip()]
+    elif any(ch in path for ch in "*?["):
+        import glob
+
+        paths = sorted(glob.glob(path))
+        if not paths:
+            raise FileNotFoundError(f"hdf5_path glob matched nothing: {path}")
+    else:
+        paths = [path]
+    return paths
+
+
 def make_dataset(
     data_cfg: DataConfig, n_classes: int, split: str = "train", kind: str = "waveform",
     frontend_cfg=None,
 ) -> ArrayDataset:
-    """Build the configured synthetic dataset split.
+    """Build the configured dataset split: a synthetic corpus, or with
+    ``dataset="hdf5"`` the packs ``hdf5_path`` / ``eval_hdf5_path`` name,
+    loaded whole or, with ``data.out_of_core``, behind an
+    ``OutOfCoreDataset`` reader (the pack's rank decides its kind).
 
     kind="waveform" -> raw audio (the front-end runs on the device);
     kind="features" -> [N, T, 128] bottleneck protocol (trunk=none). The
@@ -170,10 +190,22 @@ def make_dataset(
     (16 kHz without one), as the reference's does.
     """
     name = data_cfg.dataset
-    if name == "hdf5" or data_cfg.out_of_core:
-        raise NotImplementedError(
-            "dataset='hdf5' and out_of_core are not ported yet "
-            "(ROADMAP.md queue A, item 8: out-of-core / hdf5)")
+    if name == "hdf5":
+        from mla_tpu_torch.data import hdf5 as _h5
+
+        path = data_cfg.hdf5_path if split == "train" else data_cfg.eval_hdf5_path
+        if path is None:
+            raise ValueError(f"data.{'hdf5_path' if split == 'train' else 'eval_hdf5_path'} unset")
+        paths = _hdf5_paths(path)
+        if data_cfg.out_of_core:
+            from mla_tpu_torch.data.ooc import OutOfCoreDataset
+
+            return OutOfCoreDataset(paths[0] if len(paths) == 1 else paths)
+        x, y, ids = (_h5.load_data(paths[0]) if len(paths) == 1 else _h5.load_many(paths))
+        k = {2: "waveform", 3: "features", 4: "patches"}.get(x.ndim)
+        if k is None:
+            raise ValueError(f"unrecognized packed feature rank {x.ndim}")
+        return ArrayDataset(x, y, ids, k)
     if name not in _DATASET_CLASSES:
         raise ValueError(f"unknown dataset {name!r}")
     n = data_cfg.n_train_clips if split == "train" else data_cfg.n_eval_clips

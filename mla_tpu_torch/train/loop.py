@@ -8,11 +8,13 @@ device-resident eval set; balanced or seeded-random draws, or the stateless
 balanced stream of ``data/pipeline.py`` (``data.pipeline="grain"``, a torch
 ``DataLoader`` with ``data.grain_workers`` workers; batches are gathered on
 the host and uploaded in the staging wire form each step); the log, eval and
-checkpoint cadence; ``auto_resume`` with the sampler or RNG state, or the
-stream's position; and graceful preemption by ``request_preemption`` or
-SIGTERM / SIGINT. Not ported yet, and raising ``NotImplementedError`` that
-names its ROADMAP.md item: model or data parallelism beyond the one card,
-out-of-core / hdf5 data, TensorBoard.
+checkpoint cadence, with the CSV scalar log and, with ``train.tensorboard``,
+TensorBoard event files; hdf5 packs, loaded whole or (``data.out_of_core``)
+read a batch at a time, an out-of-core set never staged or held on the
+device; ``auto_resume`` with the sampler or RNG state, or the stream's
+position; and graceful preemption by ``request_preemption`` or SIGTERM /
+SIGINT. Not ported yet, and raising ``NotImplementedError`` that names its
+ROADMAP.md item: model or data parallelism beyond the one card.
 """
 
 from __future__ import annotations
@@ -181,7 +183,9 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     # device-resident training set: staged once in its wire form, each batch
     # gathered on the device by index (and decoded inside the train step).
     # The wire form is sized from the shapes first, so a set too large for
-    # the budget is never encoded whole: it streams, encoded per batch.
+    # the budget is never encoded whole: it streams, encoded per batch. An
+    # out-of-core set always streams: staging it would read it whole.
+    is_ooc = not isinstance(train_ds.x, np.ndarray)
     if input_kind == "waveform":
         n_clip = int(train_ds.x.shape[1])
         per_row = {"float32": 4 * n_clip, "int16": 2 * n_clip, "uint8": n_clip,
@@ -189,7 +193,7 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         data_bytes = per_row * int(train_ds.x.shape[0]) + int(train_ds.y.nbytes)
     else:
         data_bytes = int(train_ds.x.nbytes) + int(train_ds.y.nbytes)
-    use_device_data = (cfg.data.device_resident and not use_grain
+    use_device_data = (cfg.data.device_resident and not use_grain and not is_ooc
                        and data_bytes <= cfg.data.device_resident_max_bytes)
     x_all = y_all = eval_x_dev = None
     if use_device_data:
@@ -197,7 +201,8 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         y_all = torch.from_numpy(np.asarray(train_ds.y, np.float32)).to(dev)
         say(f"dataset device-resident ({data_bytes / 1e6:.0f} MB, staging={stage}); "
             "device-side batch gather" + ("" if stage == "float32" else " + decode"))
-    if cfg.data.device_resident and eval_ds.x.nbytes <= cfg.data.device_resident_max_bytes:
+    if (cfg.data.device_resident and isinstance(eval_ds.x, np.ndarray)
+            and eval_ds.x.nbytes <= cfg.data.device_resident_max_bytes):
         eval_x_dev = torch.from_numpy(np.asarray(eval_ds.x, np.float32)).to(dev)
     ckpt = CheckpointManager(os.path.join(workspace, "checkpoints", cfg.name),
                              keep=cfg.train.keep_checkpoints)

@@ -23,6 +23,7 @@ from mla_tpu_torch.config import get_config  # noqa: E402
 from mla_tpu_torch.data import ooc, sampler, synthetic  # noqa: E402
 from mla_tpu_torch.utils import logging as tlog  # noqa: E402
 from mla_tpu_torch.utils import metrics  # noqa: E402
+from tests.torch_port_common import fake_summary_writer  # noqa: E402
 
 SMALL_DATA = {"data.n_train_clips": 24, "data.n_eval_clips": 10, "data.clip_seconds": 1.0}
 
@@ -46,10 +47,16 @@ def test_class_frequency_and_unported_datasets():
     for k in range(10):
         assert synthetic.class_frequency(k, 10) == jsyn.class_frequency(k, 10)
     cfg = get_config("us8k_fused_frontend")
-    for data, what in [({"dataset": "hdf5"}, "out-of-core / hdf5"),
-                       ({"out_of_core": True}, "out-of-core / hdf5")]:
-        with pytest.raises(NotImplementedError, match=what):
-            synthetic.make_dataset(dataclasses.replace(cfg.data, **data), 10)
+    jcfg = jax_get_config("us8k_fused_frontend")
+    # hdf5 and out_of_core are ported (tests/test_torch_hdf5.py): without a
+    # pack both packages refuse alike; out_of_core leaves a synthetic set in RAM
+    for mod, c in ((synthetic, cfg), (jsyn, jcfg)):
+        with pytest.raises(ValueError, match="data.hdf5_path unset"):
+            mod.make_dataset(dataclasses.replace(c.data, dataset="hdf5"), 10)
+    small = dataclasses.replace(cfg.data, out_of_core=True, n_train_clips=3)
+    ram = synthetic.make_dataset(small, 10)
+    np.testing.assert_array_equal(ram.x, jsyn.make_dataset(
+        dataclasses.replace(jcfg.data, out_of_core=True, n_train_clips=3), 10).x)
     # synthetic_events is ported (tests/test_torch_sed.py holds it bit-identical)
     events = synthetic.make_dataset(dataclasses.replace(cfg.data, dataset="synthetic_events",
                                                         n_train_clips=2), 10)
@@ -114,7 +121,7 @@ def test_calculate_stats_equal_reference(seed):
                                    getattr(jmetrics, f)(scores, targets), rtol=0, atol=1e-12)
 
 
-def test_scalar_writer_matches_reference(tmp_path):
+def test_scalar_writer_matches_reference(tmp_path, monkeypatch):
     for mod, name in ((tlog, "ours"), (jlog, "ref")):
         w = mod.ScalarWriter(str(tmp_path / name / "scalars.csv"))
         w.write(1, {"loss": 0.5, "clips_per_sec": 10})
@@ -124,8 +131,18 @@ def test_scalar_writer_matches_reference(tmp_path):
         w.close()
     assert (tmp_path / "ours" / "scalars.csv").read_text() == \
         (tmp_path / "ref" / "scalars.csv").read_text()
-    with pytest.raises(NotImplementedError, match="TensorBoard"):
-        tlog.ScalarWriter(str(tmp_path / "x.csv"), tensorboard_dir=str(tmp_path / "tb"))
+    # the TensorBoard sink is ported (tests/test_torch_logging.py holds its
+    # event files against the reference's): with it on, the CSV is the same
+    # and each scalar goes to SummaryWriter.add_scalar, flushed per write
+    # (a recording stand-in here, so this module does not load tensorflow)
+    calls = fake_summary_writer(monkeypatch)
+    w = tlog.ScalarWriter(str(tmp_path / "x.csv"), tensorboard_dir=str(tmp_path / "tb"))
+    w.write(1, {"loss": 0.5, "clips_per_sec": 10})
+    w.write(2, {"mAP": 0.25})
+    w.close()
+    assert (tmp_path / "x.csv").read_text() == (tmp_path / "ours" / "scalars.csv").read_text()
+    assert calls == [("init", str(tmp_path / "tb")), ("loss", 0.5, 1), ("clips_per_sec", 10.0, 1),
+                     "flush", ("mAP", 0.25, 2), "flush", "close"]
     logger = tlog.create_logging(str(tmp_path / "logs"), "run")
     logger.info("hello")
     assert (tmp_path / "logs" / "0000.log").read_text().strip().endswith("hello")

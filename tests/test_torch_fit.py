@@ -32,6 +32,7 @@ from mla_tpu_torch.models.zoo import build_model  # noqa: E402
 from mla_tpu_torch.train import loop  # noqa: E402
 from mla_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from mla_tpu_torch.train.state import create_train_state, make_eval_step  # noqa: E402
+from tests.torch_port_common import fake_summary_writer  # noqa: E402
 
 # us8k_fused_frontend cut to the CPU: the fused front-end's plain version
 WAVE_SMALL = {"model.conv_channels": "8,16", "model.convs_per_stage": 1,
@@ -183,25 +184,41 @@ def test_checkpoint_manager_keeps_the_last_n(tmp_path):
 
 
 @pytest.mark.parametrize("override,what", [
-    ({"data.pipeline": "grain"}, "grain"),
     ({"train.model_parallel": 2}, "ROADMAP.md queue A, item 9"),
     ({"train.data_parallel": 2}, "one card"),
+])
+def test_unported_options_raise(tmp_path, override, what):
+    """The options still to port raise and name themselves."""
+    cfg = _wave_cfg(tmp_path, **override)
+    with pytest.raises(NotImplementedError, match=what):
+        loop.fit(cfg, log=False, device="cpu")
+
+
+@pytest.mark.parametrize("override,what", [
+    ({"data.pipeline": "grain"}, "grain"),
     ({"data.dataset": "synthetic_events"}, "synthetic_events"),
     ({"train.tensorboard": True}, "TensorBoard"),
     ({"data.dataset": "hdf5"}, "hdf5"),
 ])
-def test_unported_options_raise(tmp_path, override, what):
-    """The options still to port raise and name themselves; those ported
-    since (the grain pipeline, the synthetic_events corpus) train instead."""
+def test_formerly_unported_options_train(tmp_path, monkeypatch, override, what):
+    """Options that once raised as unported (the grain pipeline, the
+    synthetic_events corpus, TensorBoard, hdf5 packs) now train two steps."""
+    if what == "hdf5":  # a pack of the synthetic set, for train and eval
+        from mla_tpu_torch.data import hdf5
+
+        base = _wave_cfg(tmp_path)
+        ds = make_dataset(base.data, base.model.n_classes)
+        hdf5.pack_hdf5(str(tmp_path / "p.h5"), ds.x, ds.y, ds.ids)
+        override = {**override, "data.hdf5_path": str(tmp_path / "p.h5"),
+                    "data.eval_hdf5_path": str(tmp_path / "p.h5")}
+    calls = fake_summary_writer(monkeypatch)  # tests/test_torch_logging.py holds the real one
     cfg = _wave_cfg(tmp_path, **override)
-    if what in ("grain", "synthetic_events"):
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, num_steps=2, eval_every=2, checkpoint_every=0))
-        result = loop.fit(cfg, log=False, device="cpu")
-        assert result.counts["train_steps"] == 2 and np.isfinite(result.history[-1]["loss"])
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        loop.fit(cfg, log=False, device="cpu")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_steps=2, eval_every=2, checkpoint_every=0))
+    result = loop.fit(cfg, log=False, device="cpu")
+    assert result.counts["train_steps"] == 2 and np.isfinite(result.history[-1]["loss"])
+    if what == "TensorBoard":
+        assert ("loss", result.history[0]["loss"], 1) in calls and calls[-1] == "close"
 
 
 def test_fit_needs_a_card_unless_cpu_is_named(tmp_path):

@@ -68,6 +68,35 @@ def torch_model(torch_model_cfg, flat):
     return model
 
 
+def fake_summary_writer(monkeypatch):
+    """Stand ``torch.utils.tensorboard`` in with a recording SummaryWriter
+    (its import loads tensorflow where that is installed, ~15 s); returns
+    the list of calls: ("init", log_dir), (tag, value, step), "flush",
+    "close"."""
+    import sys
+    import types
+
+    calls = []
+
+    class SummaryWriter:
+        def __init__(self, log_dir):
+            calls.append(("init", log_dir))
+
+        def add_scalar(self, tag, value, step):
+            calls.append((tag, value, step))
+
+        def flush(self):
+            calls.append("flush")
+
+        def close(self):
+            calls.append("close")
+
+    module = types.ModuleType("torch.utils.tensorboard")
+    module.SummaryWriter = SummaryWriter
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", module)
+    return calls
+
+
 # --- the HTTP fronts: one request sequence sent to the port's and JAX's ---
 
 def http_call(base, method, path, body=None, ctype="application/octet-stream", headers=None):
