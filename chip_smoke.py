@@ -9,8 +9,11 @@ printing its last line:
      whether h5py, tensorboard, tensorflow, matplotlib and sklearn import on
      this machine;
   2. build: every kernel source in mla_tpu_torch/csrc (fused_frontend.cu,
-     row_merge.cu, adpcm.cu), one nvcc each, all started together, timed,
-     with nvcc's ptxas report;
+     row_merge.cu, adpcm.cu), one nvcc each, and the two host libraries
+     (native/serve_front.cpp, native/audio_ingest.cpp), one g++ each, all
+     started together, timed, with nvcc's ptxas report; data/native.py must
+     load the ingest library, which from then on carries every wav read,
+     resample and ADPCM encode;
   3. each kernel against its plain torch version on the card: the fused
      front-end, both variants (mma, the tensor-core kernel the main path
      takes, and simt, the first design), at the serving, training and
@@ -132,15 +135,37 @@ printing its last line:
      step and eval batch;
   8d. the same preset streamed on the adpcm4 wire (data.device_resident
      false: each batch gathered and encoded on the host, uploaded, decoded
-     by the scan kernel), 10 steps: finite losses, one scan decode and one
-     mma launch per step (plus one mma per eval batch); then its step in
-     turns with the resident adpcm4 step on the same batch, host ms, device
-     busy and idle share of each (the card's side of an out-of-core set).
+     by the scan kernel), 10 steps: finite losses, one native encode, one
+     scan decode and one mma launch per step (plus one mma per eval batch);
+     then its step in turns with the same step on the numpy encoder and with
+     the resident adpcm4 step on the same batch, host ms, device busy and
+     idle share of each (the card's side of an out-of-core set);
+  9. the checkpoint verbs, as subprocesses (`python -m mla_tpu_torch ...`),
+     most at once: weights --out from phase 6's trained workspace (exactly
+     the keys and arrays of state_dict_to_flat), weights --load into a
+     fresh workspace and eval on both (identical stats; eval in process:
+     one mma launch per eval batch); eval --per_class --calibrate --events
+     --sweep (a CSV row and a threshold per class, events and events_sweep
+     stats); infer on a 30 s wav at full width with frontend.impl="pallas"
+     and phase 5's weights (loaded by weights --load), one-shot and --stream
+     with --timeline and --events, and --wav_dir over three clips of other
+     lengths: the top-k bit-equal to tag_clip / StreamingTagger in process,
+     the same runs through the CLI in process with one mma launch per
+     device step; embed bit-equal to AudioTagger.embed(apply_frontend(...))
+     (one mma launch), extract bit-equal to waveform_to_patches, summary and
+     configs equal to their in-process text; profile (3 traced steps of
+     us8k_fused_frontend): a trace file and the reference's JSON keys, its
+     mean_step_ms beside phase 7's untraced step; the native ingest library:
+     both ADPCM encoders bit-exact against numpy at [64, 64000] block 256
+     and [8, 77120] block 64, wav decode and the 44.1 -> 16 kHz resample
+     within 1e-6 of scipy, host ms each. prep, infer --plot and the AudioSet
+     packer need h5py, matplotlib and tensorflow and are not run here.
 Launch counts are set to 0 just before each path (probe, serving on each
 wire, the ring, packed and reload serving paths, the two fronts' soaks and the
 reload soak, each exported artifact's run, training, adpcm4-staged
 training, the flagship forward and train steps, the augmented fit, the SED
-harness, the parity harness, the TensorBoard fit, the streamed fit) is
+harness, the parity harness, the TensorBoard fit, the streamed fit, and
+phase 9's in-process eval, infer (one-shot, streamed, folder) and embed) is
 driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
@@ -1224,7 +1249,8 @@ def _doctor_parity_logging(zero_counts, tag):
     launches by variant}, {path: decode launches by variant})."""
     from mla_tpu_torch import _device, parity
     from mla_tpu_torch.config import get_config
-    from mla_tpu_torch.data import adpcm
+    from mla_tpu_torch.data import adpcm, native
+    from mla_tpu_torch.data.audio_io import pcm16_quantize
     from mla_tpu_torch.data.ooc import take_rows
     from mla_tpu_torch.data.sampler import BalancedSampler
     from mla_tpu_torch.data.synthetic import make_dataset
@@ -1329,22 +1355,29 @@ def _doctor_parity_logging(zero_counts, tag):
     ws = os.path.join(ROOT, "build", "chip_smoke_train_streamed")
     shutil.rmtree(ws, ignore_errors=True)
     zero_counts()
+    native_before = dict(native.CALLS)
     t0 = time.perf_counter()
     res = loop.fit(scfg, workspace=ws)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts, fe_l, dec_l = dict(res.counts), dict(ff.LAUNCHES_BY_VARIANT), \
         dict(ad.LAUNCHES_BY_VARIANT)
+    native_encodes = native.CALLS["adpcm4_encode"] - native_before["adpcm4_encode"]
     losses = [h["loss"] for h in res.history]
     picked = ad.decode_variant(4, adpcm.DEFAULT_BLOCK)
     print(f"streamed adpcm4 fit: {counts['train_steps']} train steps + {counts['eval_batches']} "
           f"eval batches in {fit_s:.2f} s, adpcm_decode launches {dec_l}, fused_log_mel_patches "
-          f"launches {fe_l}; losses {losses}")
+          f"launches {fe_l}, native adpcm4 encodes {native_encodes}; losses {losses}")
     if counts["train_steps"] != scfg.train.num_steps or not np.isfinite(losses).all() \
             or dec_l != {**dict.fromkeys(("scan", "serial"), 0), picked: counts["train_steps"]} \
             or fe_l != {"mma": counts["train_steps"] + counts["eval_batches"], "simt": 0}:
         raise RuntimeError(f"streamed adpcm4 fit: {counts}, decode {dec_l}, front-end {fe_l}, "
                            f"losses {losses}")
+    # the host encoder is the native library's (phase 9f holds it bit-exact
+    # against numpy): one call per streamed batch, none falling back unseen
+    if native_encodes != counts["train_steps"]:
+        raise RuntimeError(f"streamed adpcm4 fit: {native_encodes} native encodes for "
+                           f"{counts['train_steps']} steps")
     fe_paths["train_streamed_adpcm4"] = fe_l
     dec_paths["train_streamed_adpcm4"] = dec_l
     # its step in turns with the resident adpcm4 step phase 6 runs: the same
@@ -1358,33 +1391,379 @@ def _doctor_parity_logging(zero_counts, tag):
     state = res.state
     step = make_train_step(scfg, state.model, "waveform", clip_samples=ds.x.shape[1])
 
-    def streamed():
+    def streamed():  # the fit's feed: the native encoder
         x = torch.from_numpy(loop._encode(take_rows(ds, idx), "adpcm4")).cuda()
         step(state, x, y)
+
+    def numpy_encode():  # the numpy encoder, the streamed feed before the native one
+        return adpcm.numpy_encode(pcm16_quantize(take_rows(ds, idx)), adpcm.DEFAULT_BLOCK, 4)
+
+    def streamed_numpy():
+        step(state, torch.from_numpy(numpy_encode()).cuda(), y)
 
     def resident():
         step(state, wire_all.index_select(0, idx_t), y)
 
-    turns, _ = _in_turns({"streamed": streamed, "resident": resident}, reps=STREAM_REPS,
-                         warmup=2)
+    if not np.array_equal(loop._encode(take_rows(ds, idx), "adpcm4"), numpy_encode()):
+        raise RuntimeError("streamed adpcm4 batch: the native wire differs from numpy's")
+    feeds = {"streamed": streamed, "streamed_numpy": streamed_numpy, "resident": resident}
+    turns, _ = _in_turns(feeds, reps=STREAM_REPS, warmup=2)
     n_prof = 5
     profs = {k: _report_profile(f"{k} adpcm4 train step", n_prof, turns[k],
-                                _profile(fn, n_prof), tag)
-             for k, fn in (("streamed", streamed), ("resident", resident))}
+                                _profile(fn, n_prof), tag) for k, fn in feeds.items()}
     encode_ms = _host_median_ms(lambda: loop._encode(take_rows(ds, idx), "adpcm4"),
                                 reps=STREAM_REPS, warmup=1)
+    encode_numpy_ms = _host_median_ms(numpy_encode, reps=STREAM_REPS, warmup=1)
     print(f"time: adpcm4 train step, batch {scfg.train.batch_size} x {ds.x.shape[1]} samples, "
           f"host clock in turns ({STREAM_REPS} each): streamed {turns['streamed']:.4f} ms "
-          f"(host gather + encode alone {encode_ms:.4f} ms), resident {turns['resident']:.4f} "
-          f"ms; device busy {profs['streamed']['device_busy_ms']} against "
-          f"{profs['resident']['device_busy_ms']} ms; idle share "
-          f"{profs['streamed']['idle_share']} against {profs['resident']['idle_share']} {tag}")
+          f"(host gather + native encode alone {encode_ms:.4f} ms), streamed on the numpy "
+          f"encoder {turns['streamed_numpy']:.4f} ms (gather + encode {encode_numpy_ms:.4f} "
+          f"ms), resident {turns['resident']:.4f} ms; device busy "
+          f"{profs['streamed']['device_busy_ms']} / {profs['streamed_numpy']['device_busy_ms']} "
+          f"/ {profs['resident']['device_busy_ms']} ms; idle share "
+          f"{profs['streamed']['idle_share']} / {profs['streamed_numpy']['idle_share']} / "
+          f"{profs['resident']['idle_share']} {tag}")
     rec["streamed_adpcm4"] = {"counts": counts, "fit_s": fit_s, "losses": losses,
                               "decode_launches": dec_l, "frontend_launches": fe_l,
-                              "turns_ms": turns, "encode_ms": encode_ms, "profiles": profs}
+                              "native_encodes": native_encodes, "turns_ms": turns,
+                              "encode_ms": encode_ms, "encode_numpy_ms": encode_numpy_ms,
+                              "profiles": profs}
     del wire_all, state, step
     torch.cuda.empty_cache()
     return rec, fe_paths, dec_paths
+
+
+# phase 9: the checkpoint verbs and the host ingest library
+VERBS_DIR = os.path.join(ROOT, "build", "chip_smoke_verbs")
+INFER_SECONDS = 30  # the infer verb's clip, written with scipy from a seeded generator
+DIR_CLIPS = {"a.wav": 4.0, "sub/b.wav": 12.5, "sub/c.wav": 0.7}  # --wav_dir, three lengths
+VERB_TIMEOUT_S = 600
+NATIVE_CASES = ((64, 64000, 256), (8, 77120, 64))  # the training and serving sites
+
+
+def _module_jobs(jobs: dict) -> dict:
+    """Every job at once, each a list of `python -m mla_tpu_torch <args>`
+    commands run in order from the checkout: {name: [stdout per command]};
+    an exit other than 0 raises."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+
+    def run(commands):
+        outs = []
+        for args in commands:
+            r = subprocess.run([sys.executable, "-m", "mla_tpu_torch", *args], cwd=ROOT,
+                               env=env, capture_output=True, text=True,
+                               timeout=VERB_TIMEOUT_S)
+            if r.returncode != 0:
+                raise RuntimeError(f"python -m mla_tpu_torch {' '.join(args)}: exit "
+                                   f"{r.returncode}\n{r.stderr[-4000:]}")
+            outs.append(r.stdout)
+        return outs
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(run, commands) for k, commands in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def _verb_in_process(argv) -> str:
+    """One verb through the port's CLI in this process: its stdout."""
+    from mla_tpu_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    if rc:
+        raise RuntimeError(f"mla_tpu_torch {' '.join(argv)}: exit {rc}")
+    return buf.getvalue()
+
+
+def _checkpoint_verbs(serve_state_dict, packages, train_step_ms, zero_counts, tag):
+    """Phase 9: the checkpoint verbs on the card as subprocesses, beside the
+    same work in process (launch counts read there), and the native ingest
+    library against numpy and scipy. Returns (record, {path: front-end
+    launches by variant})."""
+    from scipy.io import wavfile
+    from scipy.signal import resample_poly
+
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.data import adpcm, audio_io, native
+    from mla_tpu_torch.data.labels import labels_for
+    from mla_tpu_torch.models.convert import state_dict_to_flat
+    from mla_tpu_torch.models.zoo import AudioTagger
+    from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.ops.frontend import apply_frontend, waveform_to_patches
+    from mla_tpu_torch.serve import streaming
+    from mla_tpu_torch.train import loop
+
+    rec, fe_paths = {}, {}
+    t_phase = time.perf_counter()
+    shutil.rmtree(VERBS_DIR, ignore_errors=True)
+    os.makedirs(VERBS_DIR)
+
+    def d(rel):
+        return os.path.join(VERBS_DIR, rel)
+
+    def mma_only(path, n):
+        fe_l = dict(ff.LAUNCHES_BY_VARIANT)
+        if fe_l != {"mma": n, "simt": 0}:
+            raise RuntimeError(f"{path}: front-end launches {fe_l}, want {n} on mma")
+        fe_paths[path] = fe_l
+        return fe_l
+
+    print("phase 9: not run on the card: prep, infer --plot and the AudioSet packer "
+          f"(h5py {packages.get('h5py')}, matplotlib {packages.get('matplotlib')}, tensorflow "
+          f"{packages.get('tensorflow')} on this machine); the CPU tests hold them against JAX")
+
+    # the serving weights of phase 5 as a step-0 checkpoint of a streaming
+    # workspace (weights --load, in process: host work only), and the clips
+    us8k = ["--config", "us8k_fused_frontend"]
+    train_ws = os.path.join(ROOT, "build", "chip_smoke_train")
+    sws, snpz = d("ws_streaming"), d("streaming.npz")
+    np.savez(snpz, **state_dict_to_flat(serve_state_dict))
+    print(f"weights --load (in process): "
+          f"{_verb_in_process(['weights', '--workspace', sws, '--load', snpz]).strip()}")
+    icfg = get_config("streaming_inference", {"frontend.impl": "pallas"})
+    pallas = ["--workspace", sws, "--set", "frontend.impl=pallas"]
+    rng = np.random.default_rng(SEED + 9)
+    sr = icfg.frontend.sample_rate
+    t = np.arange(INFER_SECONDS * sr) / sr
+    wav = (0.05 * rng.standard_normal(t.shape) + 0.4 * np.sin(2 * np.pi * 700 * t)
+           * ((t % 8) < 4)).astype(np.float32)
+    clip = d("clip30.wav")
+    wavfile.write(clip, sr, audio_io.pcm16_quantize(wav))
+    for rel, secs in DIR_CLIPS.items():
+        os.makedirs(os.path.dirname(d(f"clips/{rel}")), exist_ok=True)
+        wavfile.write(d(f"clips/{rel}"), sr, audio_io.pcm16_quantize(
+            0.3 * rng.standard_normal(int(secs * sr)).astype(np.float32)))
+    wav = audio_io.load_wav_16k(clip, sr)  # what the verbs read
+
+    def tl_flags(k):
+        return ["--timeline", d(f"{k}.csv"), "--events", d(f"{k}.json")]
+
+    loaded_ws = d("ws_loaded")
+    jobs = {  # the round trip's two commands in turn, beside the other verbs
+        "weights": [["weights", *us8k, "--workspace", train_ws, "--out", d("us8k.npz")],
+                    ["weights", *us8k, "--workspace", loaded_ws, "--load", d("us8k.npz")]],
+        "eval_trained": [["eval", *us8k, "--workspace", train_ws]],
+        "eval_flags": [["eval", *us8k, "--workspace", train_ws, "--per_class", d("pc.csv"),
+                        "--calibrate", d("thr.json"), "--events", "--sweep"]],
+        "infer": [["infer", "--wav", clip, *tl_flags("one_shot"), *pallas]],
+        "infer_stream": [["infer", "--wav", clip, "--stream", *tl_flags("stream"), *pallas]],
+        "infer_dir": [["infer", "--wav_dir", d("clips"), "--timeline", d("tl_dir"),
+                       "--events", d("dir.json"), *pallas]],
+        "embed": [["embed", "--wav", clip, "--out", d("emb.npy"), *pallas]],
+        "extract": [["extract", "--wav", clip, "--out", d("patches.npy"), "--config",
+                     "streaming_inference"]],
+        "summary": [["summary", "--config", "streaming_inference"]],
+        "configs": [["configs"]],
+    }
+    t0 = time.perf_counter()
+    outs = _module_jobs(jobs)
+    out = {k: v[-1] for k, v in outs.items()}
+    verbs_s = {"verbs at once": time.perf_counter() - t0}
+    print(f"phase 9: {sum(map(len, jobs.values()))} verb commands as subprocesses, "
+          f"{len(jobs)} at once, in {verbs_s['verbs at once']:.1f} s")
+
+    # 9a. the weights round trip, then eval on the loaded workspace alone
+    t0 = time.perf_counter()
+    out_e = _module_jobs({"eval": [["eval", *us8k, "--workspace", loaded_ws]]})["eval"][0]
+    verbs_s["eval on the loaded workspace"] = time.perf_counter() - t0
+    out_w, out_l = outs["weights"]
+    print(f"weights --out: {out_w.strip()}")
+    restored, _ = loop.resume(get_config("us8k_fused_frontend"), train_ws, device="cpu")
+    want = state_dict_to_flat(restored.model.state_dict())
+    with np.load(d("us8k.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    if set(got) != set(want) or any(not np.array_equal(got[k], want[k]) for k in want):
+        raise RuntimeError(f"weights --out: keys {sorted(set(got) ^ set(want))} differ from "
+                           "state_dict_to_flat, or an array differs")
+    print(f"weights --load: {out_l.strip()}")
+    print(f"eval (trained workspace): {out['eval_trained'].strip()}")
+    print(f"eval (loaded workspace):  {out_e.strip()}")
+    if out["eval_trained"] != out_e:
+        raise RuntimeError("eval prints other stats after the weights round trip")
+    ecfg = get_config("us8k_fused_frontend")
+    zero_counts()
+    line = _verb_in_process(["eval", *us8k, "--workspace", loaded_ws])
+    torch.cuda.synchronize()
+    n_batches = -(-ecfg.data.n_eval_clips // ecfg.train.batch_size)
+    fe_l = mma_only("eval_verb", n_batches)
+    print(f"eval (in process): {n_batches} eval batches, fused_log_mel_patches launches {fe_l}")
+    if line != out_e:
+        raise RuntimeError(f"eval in process {line!r} against the verb's {out_e!r}")
+    rec["weights_eval"] = {"npz_arrays": len(got), "stats": json.loads(line),
+                           "launches": fe_l}
+
+    # 9b. eval's output flags
+    stats = json.loads(out["eval_flags"].strip().splitlines()[-1])
+    with open(d("pc.csv"), newline="") as fh:
+        rows = list(csv.reader(fh))
+    with open(d("thr.json")) as fh:
+        thr = json.load(fh)
+    names_u = labels_for(ecfg.data.dataset, ecfg.model.n_classes)
+    print(f"eval --per_class --calibrate --events --sweep: mAP {stats['mAP']}, events "
+          f"{json.dumps(stats.get('events'))}, best swept threshold "
+          f"{json.dumps((stats.get('events_sweep') or {}).get('best'))}; {len(rows) - 1} CSV "
+          f"rows, {len(thr['thresholds'])} thresholds")
+    if len(rows) != 1 + ecfg.model.n_classes or list(thr["thresholds"]) != names_u \
+            or "events" not in stats or "events_sweep" not in stats:
+        raise RuntimeError(f"eval flags: {len(rows)} CSV rows, thresholds {thr}, keys "
+                           f"{sorted(stats)}")
+    rec["eval_flags"] = {"stats": stats, "csv_rows": len(rows) - 1, "thresholds": thr}
+
+    # 9c. infer: the verb's top-k against tag_clip / StreamingTagger in
+    # process, bit-equal; the same runs through the CLI in process with the
+    # device steps counted
+    names = labels_for(icfg.data.dataset, icfg.model.n_classes)
+
+    def top_k(scores, k=5):
+        return [[names[i], float(scores[i])] for i in np.argsort(-scores)[:k]]
+
+    def fed(tagger, block):
+        for s in range(0, len(wav), block):
+            tagger.feed(wav[s: s + block])
+        tagger.flush()
+        return tagger.scores()
+
+    want_one = top_k(streaming.tag_clip(icfg, serve_state_dict, wav))
+    want_stream = top_k(fed(streaming.StreamingTagger(icfg, serve_state_dict, timeline_cap=256),
+                            sr))
+    folds = [0]
+    fold = streaming.StreamingTagger._fold
+
+    def counted(self, x):
+        folds[0] += 1
+        return fold(self, x)
+
+    streaming.StreamingTagger._fold = counted
+    infer_rec = {}
+    try:
+        for path, want in (("infer", want_one), ("infer_stream", want_stream),
+                           ("infer_dir", None)):
+            (argv,) = jobs[path]
+            got_sub = [json.loads(ln) for ln in out[path].strip().splitlines()]
+            folds[0] = 0
+            zero_counts()
+            got_in = [json.loads(ln) for ln in _verb_in_process(argv).strip().splitlines()]
+            torch.cuda.synchronize()
+            steps = folds[0] + (2 if path == "infer" else 0)  # tag_clip + the timeline forward
+            fe_l = mma_only(path, steps)
+            print(f"{path}: {json.dumps(got_sub[-1])[:300]}; {steps} device steps, "
+                  f"fused_log_mel_patches launches {fe_l}")
+            if got_in != got_sub:
+                raise RuntimeError(f"{path}: in process {got_in} against the verb's {got_sub}")
+            if want is not None and got_sub[-1]["top_k"] != want:
+                raise RuntimeError(f"{path}: the verb's top-k {got_sub[-1]['top_k']} against "
+                                   f"{want} in process")
+            if path == "infer_dir" and len(got_sub) != len(DIR_CLIPS):
+                raise RuntimeError(f"infer --wav_dir: {len(got_sub)} lines for {len(DIR_CLIPS)}")
+            infer_rec[path] = {"lines": got_sub, "device_steps": steps, "launches": fe_l}
+    finally:
+        streaming.StreamingTagger._fold = fold
+    for k in ("one_shot", "stream"):
+        with open(d(f"{k}.json")) as fh:
+            infer_rec[f"{k}_events"] = len(json.load(fh)["events"])
+    print(f"infer: events {infer_rec['one_shot_events']} one-shot, {infer_rec['stream_events']} "
+          f"streamed")
+    rec["infer"] = infer_rec
+
+    # 9d. embed, extract, summary, configs
+    model = streaming._model_with_weights(icfg, serve_state_dict, torch.device("cuda"))
+    x = torch.from_numpy(wav)[None].cuda()
+    with torch.inference_mode():
+        want_emb = model.embed(apply_frontend(x, icfg.frontend))[0].float().cpu().numpy()
+        want_patches = waveform_to_patches(x[0], icfg.frontend).cpu().numpy()
+    emb = np.load(d("emb.npy"))
+    zero_counts()
+    _verb_in_process(["embed", "--wav", clip, "--out", d("emb_in.npy"), *pallas])
+    torch.cuda.synchronize()
+    fe_l = mma_only("embed", 1)
+    patches = np.load(d("patches.npy"))
+    print(f"embed: {out['embed'].strip()}, bit-equal to AudioTagger.embed(apply_frontend(...)): "
+          f"{np.array_equal(emb, want_emb)}, in process {fe_l}; extract: "
+          f"{out['extract'].strip()}, bit-equal to waveform_to_patches: "
+          f"{np.array_equal(patches, want_patches)}")
+    if not (np.array_equal(emb, want_emb) and np.array_equal(np.load(d("emb_in.npy")), emb)
+            and np.array_equal(patches, want_patches)):
+        raise RuntimeError("embed or extract differs from its in-process computation")
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in AudioTagger(icfg.model).parameters())
+    summary = out["summary"]
+    total = [ln for ln in summary.splitlines() if ln.startswith("TOTAL params")]
+    print(f"summary: {total} ({n_params:,} parameters in the model); configs: "
+          f"{out['configs'].split()}")
+    if summary != _verb_in_process(["summary", "--config", "streaming_inference"]) \
+            or out["configs"] != _verb_in_process(["configs"]) \
+            or not total or int(total[0].split()[-1].replace(",", "")) != n_params:
+        raise RuntimeError("summary or configs differ from their in-process text")
+    rec["embed_extract_summary"] = {"embed_shape": list(emb.shape),
+                                    "patches_shape": list(patches.shape), "params": n_params}
+
+    # 9e. profile, alone on the card
+    t0 = time.perf_counter()
+    prof_out = _module_jobs({"profile": [["profile", *us8k, "--steps", "3", "--out",
+                                          d("trace")]]})["profile"][0]
+    verbs_s["profile"] = time.perf_counter() - t0
+    prof = json.loads(prof_out.strip().splitlines()[-1])
+    traces = sorted(f for f in os.listdir(d("trace")) if f.endswith(".json"))
+    with open(d(f"trace/{traces[-1]}")) as fh:
+        n_events = len(json.load(fh)["traceEvents"])
+    print(f"profile: mean_step_ms {prof['mean_step_ms']} over {prof['steps']} traced steps at "
+          f"batch {prof['batch']} ({prof['clips_per_sec']} clips/s; the untraced us8k step of "
+          f"phase 7: {train_step_ms:.4f} ms); trace {traces[-1]} with {n_events} events; "
+          f"memory keys {len(prof['memory'])}, peak allocated "
+          f"{prof['memory'].get('allocated_bytes.all.peak')} B {tag}")
+    if set(prof) != {"trace_dir", "steps", "batch", "mean_step_ms", "clips_per_sec", "memory"} \
+            or not traces or not n_events or not prof["memory"]:
+        raise RuntimeError(f"profile: {prof}, traces {traces}")
+    rec["profile"] = {**prof, "trace_events": n_events, "phase7_step_ms": train_step_ms}
+
+    # 9f. the native ingest library against numpy and scipy, host ms each
+    if not native.available():
+        raise RuntimeError("data/native.py: the library is not available on this machine")
+    codec_rec = {}
+    for rows, n, block in NATIVE_CASES:
+        pcm = audio_io.pcm16_quantize(
+            np.clip(rng.standard_normal((rows, n)) * 0.2, -1, 1).astype(np.float32))
+        for bits in (4, 2):
+            enc = native.adpcm4_encode if bits == 4 else native.adpcm2_encode
+            key = f"adpcm{bits} [{rows}, {n}] block {block}"
+            if not np.array_equal(enc(pcm, block), adpcm.numpy_encode(pcm, block, bits)):
+                raise RuntimeError(f"{key}: the native wire differs from numpy's")
+            codec_rec[key] = {
+                "native_ms": _host_median_ms(lambda: enc(pcm, block)),
+                "numpy_ms": _host_median_ms(lambda: adpcm.numpy_encode(pcm, block, bits),
+                                            reps=5, warmup=1)}
+            print(f"native {key}: bit-exact against numpy; host ms native "
+                  f"{codec_rec[key]['native_ms']:.4f}, numpy {codec_rec[key]['numpy_ms']:.4f} "
+                  f"(medians) {tag}")
+    sr_in = 44100
+    x44 = (0.3 * rng.standard_normal(10 * sr_in)).astype(np.float32)
+    bio = io.BytesIO()
+    wavfile.write(bio, sr_in, audio_io.pcm16_quantize(x44))
+    raw = bio.getvalue()
+    dec, got_sr = native.wav_decode(raw)
+    _, pcm44 = wavfile.read(io.BytesIO(raw))
+    dec_err = float(np.abs(dec - audio_io._pcm_to_float_mono(pcm44)).max())
+    res16 = native.resample(dec, sr_in, sr)
+    want16 = resample_poly(dec, 160, 441).astype(np.float32)
+    res_err = float(np.abs(res16 - want16).max()) if res16.shape == want16.shape else np.inf
+    wav_ms = {"decode_native_ms": _host_median_ms(lambda: native.wav_decode(raw)),
+              "decode_scipy_ms": _host_median_ms(
+                  lambda: audio_io._pcm_to_float_mono(wavfile.read(io.BytesIO(raw))[1])),
+              "resample_native_ms": _host_median_ms(lambda: native.resample(dec, sr_in, sr)),
+              "resample_scipy_ms": _host_median_ms(lambda: resample_poly(dec, 160, 441))}
+    print(f"native wav_decode (10 s at 44.1 kHz int16): max |err| against scipy {dec_err:.3e}; "
+          f"resample 44.1 -> 16 kHz: max |err| against resample_poly {res_err:.3e}; host ms "
+          f"{json.dumps(wav_ms)} {tag}")
+    if got_sr != sr_in or dec_err > 1e-6 or res_err > 1e-6:
+        raise RuntimeError(f"native wav: rate {got_sr}, decode err {dec_err}, resample "
+                           f"err {res_err}")
+    rec["native"] = {"codecs": codec_rec, "wav_decode_err": dec_err, "resample_err": res_err,
+                     **wav_ms, "calls": dict(native.CALLS)}
+    rec["verbs_s"] = verbs_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 9: {rec['phase_s']:.1f} s (subprocess groups {json.dumps(verbs_s)})")
+    return rec, fe_paths
 
 
 def main() -> int:
@@ -1450,21 +1829,29 @@ def main() -> int:
         _build.load(src, sources[src])
         return time.perf_counter() - t0
 
-    def build_native():
+    def build_native(lib):
         t0 = time.perf_counter()
-        _build.load_native("serve_front")
+        _build.load_native(lib)
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+    natives = ("serve_front", "audio_ingest")
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(natives)) as pool:
         futures = {src: pool.submit(build, src) for src in sources}
-        native_future = pool.submit(build_native)
+        native_futures = {lib: pool.submit(build_native, lib) for lib in natives}
         build_s = {src: f.result() for src, f in futures.items()}
-        native_s = native_future.result()
-    print(f"build: {len(sources)} sources and the native front in parallel, "
-          f"{time.perf_counter() - t0:.2f} s")
-    print(f"build: native/serve_front.cpp (g++ {' '.join(_build.GXX_FLAGS)}) {native_s:.2f} s -> "
-          f"{_build.native_library_path('serve_front')}")
+        native_s = {lib: f.result() for lib, f in native_futures.items()}
+    print(f"build: {len(sources)} sources, the native front and the native ingest library in "
+          f"parallel, {time.perf_counter() - t0:.2f} s")
+    for lib in natives:
+        print(f"build: native/{lib}.cpp (g++ {' '.join(_build.GXX_FLAGS)}) {native_s[lib]:.2f} s "
+              f"-> {_build.native_library_path(lib)}")
+    # from here on the wav reader, the resampler and the ADPCM encoders take
+    # the native library; nothing may fall back to numpy unseen
+    from mla_tpu_torch.data import native
+
+    if not native.available():
+        raise RuntimeError("native/audio_ingest.cpp built but data/native.py cannot load it")
     record["native_build_s"] = native_s
     for src, s in build_s.items():
         print(f"build: csrc/{src}.cu {s:.2f} s")
@@ -2440,6 +2827,18 @@ def main() -> int:
     # streamed adpcm4 feed
     phase8, phase8_fe, phase8_dec = _doctor_parity_logging(zero_counts, tag)
     record["phase8"] = phase8
+
+    # 9. the checkpoint verbs (on phase 6's trained workspace and phase 5's
+    # serving weights) and the native ingest library
+    # and under PyTorch's default cuDNN TF32 flag, as the verbs' subprocesses
+    # run, so that their outputs can be held bit-equal against this process's
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        phase9, phase9_fe = _checkpoint_verbs(state_dict, record["packages"], step_med,
+                                              zero_counts, tag)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    record["phase9"] = phase9
     dec_by_path.update(phase8_dec)
     dec_launches_by_variant = {v: sum(p[v] for p in dec_by_path.values())
                                for v in DECODE_VARIANTS}
@@ -2451,7 +2850,8 @@ def main() -> int:
                   "serve_adpcm2": {"mma": adpcm_serve["adpcm2"]["frontend_launches"], "simt": 0},
                   **{p: r["frontend_launches"] for p, r in new_paths.items()},
                   "train_adpcm4": a_fe, **leftover_fe, "flagship_forward": fwd_launches,
-                  "flagship_train": flagship["pallas"]["frontend_launches"], **phase8_fe}
+                  "flagship_train": flagship["pallas"]["frontend_launches"], **phase8_fe,
+                  **phase9_fe}
     kernels = [{
         "name": "fused_log_mel_patches",
         "variant": "mma",

@@ -9,7 +9,9 @@ on its own. The encoder resets at each block (predictor = the block's first
 sample, step index from the block's mean |first difference|) and shares the
 decoder's reconstruction step, all in exact int32 arithmetic.
 
-This module is the host side: the numpy encoders and decoders. The device
+This module is the host side: the numpy encoders and decoders. The
+encoders take the C++ library (``data/native.py``, threaded across rows,
+bit-identical) when it is built, as the reference's do. The device
 decode is ``mla_tpu_torch.ops.adpcm.adpcm_decode`` (a CUDA kernel, or its
 plain torch version for a CPU tensor), bit-identical to the decoders here.
 """
@@ -93,7 +95,20 @@ def _init_index(blocks: np.ndarray) -> np.ndarray:
 
 
 def _encode(x: np.ndarray, block: int, bits: int) -> np.ndarray:
-    """Both encoders: vectorised over all rows x blocks, a loop over the
+    """Both encoders: the native library's when it is built, else
+    :func:`numpy_encode`."""
+    from mla_tpu_torch.data import native
+
+    if not native.available():
+        return numpy_encode(x, block, bits)
+    xi, lead = _as_int16_rows(x)
+    enc = native.adpcm4_encode if bits == 4 else native.adpcm2_encode
+    return enc(_pad_blocks(xi, block), block).reshape(lead + (-1,))
+
+
+def numpy_encode(x: np.ndarray, block: int = DEFAULT_BLOCK, bits: int = 4) -> np.ndarray:
+    """The numpy encoder (the codec's spec, whether or not the native
+    library is built): vectorised over all rows x blocks, a loop over the
     block's samples."""
     xi, lead = _as_int16_rows(x)
     xi = _pad_blocks(xi, block)

@@ -2,9 +2,8 @@
 ``mla_tpu/data/audio_io.py``): wav read / write and polyphase resampling
 on numpy and scipy, PCM16 and 8-bit mu-law.
 
-The reference reads wavs through its C++ decoder (``data/native.py``) when
-that is built; the port takes the reference's scipy path (ROADMAP.md
-queue A, item 10 ports the native decoder).
+Reading and resampling take the C++ library (``data/native.py``) when it
+is built, as the reference's do, and scipy otherwise.
 
 ``mulaw_decode`` takes a numpy array on the host or a torch tensor on any
 device, with one formula for both sides of the wire.
@@ -38,13 +37,23 @@ def _pcm_to_float_mono(data: np.ndarray) -> np.ndarray:
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
-    """Read a wav file -> (float32 waveform in [-1, 1], sample_rate)."""
+    """Read a wav file -> (float32 waveform in [-1, 1], sample_rate), through
+    the native decoder when it is built."""
+    from mla_tpu_torch.data import native
+
+    if native.available():
+        with open(path, "rb") as f:
+            return native.wav_decode(f.read())
     sr, data = _wavfile.read(path)
     return _pcm_to_float_mono(data), int(sr)
 
 
 def read_wav_bytes(data: bytes) -> tuple[np.ndarray, int]:
     """In-memory wav decode (the HTTP fronts receive file bytes)."""
+    from mla_tpu_torch.data import native
+
+    if native.available():
+        return native.wav_decode(data)
     sr, raw = _wavfile.read(io.BytesIO(data))
     return _pcm_to_float_mono(raw), int(sr)
 
@@ -52,6 +61,10 @@ def read_wav_bytes(data: bytes) -> tuple[np.ndarray, int]:
 def resample(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     if sr == target_sr:
         return np.asarray(x, np.float32)
+    from mla_tpu_torch.data import native
+
+    if native.available():
+        return native.resample(np.asarray(x, np.float32), sr, target_sr)
     from scipy.signal import resample_poly  # seconds to import; only a resample needs it
 
     frac = Fraction(target_sr, sr).limit_denominator(1000)

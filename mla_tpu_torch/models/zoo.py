@@ -195,3 +195,14 @@ def build_model(cfg: ModelConfig, device=None, seed: Optional[int] = None) -> Au
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def example_input(cfg: ModelConfig, batch: int = 2, t: int = 10, frames: int = 96,
+                  bins: int = 64, device=None) -> torch.Tensor:
+    """Zeros of the model's input shape on ``device`` (None = the card):
+    features [batch, t, embed_dim] when the trunk is "none", else patches
+    [batch, t, frames, bins]."""
+    dev = resolve_device(device)
+    if cfg.trunk == "none":
+        return torch.zeros((batch, t, cfg.embed_dim), dtype=torch.float32, device=dev)
+    return torch.zeros((batch, t, frames, bins), dtype=torch.float32, device=dev)

@@ -109,12 +109,12 @@ def _encode(x: np.ndarray, stage: str) -> np.ndarray:
     return np.asarray(x)
 
 
-def evaluate(cfg: Config, state: TrainState, ds: ArrayDataset, eval_step,
-             device: torch.device, x_device: Optional[torch.Tensor] = None,
-             counts: Optional[Dict[str, int]] = None) -> Dict[str, float]:
-    """Forward the eval set in batches of train.batch_size, metrics on the
-    host. ``x_device``: the eval inputs already on the device, cut into
-    batches there (the last window shifted back to stay in range, its
+def eval_scores(cfg: Config, state: TrainState, ds: ArrayDataset, eval_step,
+                device: torch.device, x_device: Optional[torch.Tensor] = None,
+                counts: Optional[Dict[str, int]] = None) -> np.ndarray:
+    """Forward the eval set in batches of train.batch_size -> scores [N, C]
+    on the host. ``x_device``: the eval inputs already on the device, cut
+    into batches there (the last window shifted back to stay in range, its
     overlap rows dropped). Otherwise each batch is uploaded, the last one
     padded to the full batch by repeating its last row. ``counts``, if
     given, has its "eval_batches" raised by one per forward batch."""
@@ -137,7 +137,15 @@ def evaluate(cfg: Config, state: TrainState, ds: ArrayDataset, eval_step,
             outs.append(eval_step(state, x_t).cpu().numpy()[: len(idx)])
         if counts is not None:
             counts["eval_batches"] += 1
-    return calculate_stats(np.concatenate(outs), ds.y)
+    return np.concatenate(outs)
+
+
+def evaluate(cfg: Config, state: TrainState, ds: ArrayDataset, eval_step,
+             device: torch.device, x_device: Optional[torch.Tensor] = None,
+             counts: Optional[Dict[str, int]] = None) -> Dict[str, float]:
+    """:func:`eval_scores`, then the metrics on the host."""
+    return calculate_stats(eval_scores(cfg, state, ds, eval_step, device, x_device, counts),
+                           ds.y)
 
 
 def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,

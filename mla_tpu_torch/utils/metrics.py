@@ -1,13 +1,14 @@
-"""Eval metrics (own copy of what ``fit``, ``evaluate`` and the SED harness
-use from ``mla_tpu/utils/metrics.py``): per-class average precision and
-ROC-AUC averaged over classes, d-prime = sqrt(2) * ppf(AUC), and the DCASE
+"""Eval metrics (own copy of ``mla_tpu/utils/metrics.py``): per-class average
+precision and ROC-AUC averaged over classes, d-prime = sqrt(2) * ppf(AUC),
+the per-class table and its CSV (``eval --per_class``), per-class decision
+thresholds at a precision target (``eval --calibrate``), and the DCASE
 segment-based event metrics (``events_to_segment_grid``,
 ``segment_event_metrics``). Vectorized numpy on the host.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 from scipy import stats as _scipy_stats
@@ -70,11 +71,18 @@ def d_prime(auc):
     return np.sqrt(2.0) * _scipy_stats.norm.ppf(auc)
 
 
-def calculate_stats(scores: np.ndarray, targets: np.ndarray) -> Dict[str, float]:
+def calculate_stats(
+    scores: np.ndarray, targets: np.ndarray, class_mask: Optional[np.ndarray] = None
+) -> Dict[str, float]:
     """Clip scores + multi-hot targets -> {mAP, mAUC, d_prime}, averaging over
-    classes that have at least one positive (and one negative for AUC)."""
+    classes that have at least one positive (and one negative for AUC);
+    ``class_mask`` [C] bool, if given, leaves the masked-out classes out of
+    the means."""
     ap = average_precision(scores, targets)
     auc = roc_auc(scores, targets)
+    if class_mask is not None:
+        ap = np.where(class_mask, ap, np.nan)
+        auc = np.where(class_mask, auc, np.nan)
     m_ap = float(np.nanmean(ap)) if np.any(np.isfinite(ap)) else float("nan")
     m_auc = float(np.nanmean(auc)) if np.any(np.isfinite(auc)) else float("nan")
     return {
@@ -82,6 +90,63 @@ def calculate_stats(scores: np.ndarray, targets: np.ndarray) -> Dict[str, float]
         "mAUC": m_auc,
         "d_prime": float(d_prime(m_auc)) if np.isfinite(m_auc) else float("nan"),
     }
+
+
+def per_class_stats(scores: np.ndarray, targets: np.ndarray):
+    """Per-class AP / AUC / d' arrays (written beside the means for error
+    analysis)."""
+    ap = average_precision(scores, targets)
+    auc = roc_auc(scores, targets)
+    with np.errstate(invalid="ignore"):
+        dp = d_prime(auc)
+    return {"AP": ap, "AUC": auc, "d_prime": dp}
+
+
+def calibrate_thresholds(scores: np.ndarray, targets: np.ndarray,
+                         target_precision: float = 0.8,
+                         default: float = 0.5) -> np.ndarray:
+    """Per-class decision thresholds from eval scores: the lowest score
+    cutoff whose precision on (scores, targets) still reaches
+    ``target_precision``, i.e. maximal recall at the precision target.
+
+    scores, targets: [N, C]. Returns [C] float32. A class where no cutoff
+    reaches the target (or with no positives) falls back to ``default``.
+    Thresholds are placed midway between the last passing score and the
+    next one below, so eval clips compare greater-or-equal stably under
+    float noise.
+    """
+    scores = np.asarray(scores, np.float64)
+    targets = np.asarray(targets, np.float64)
+    n, c = scores.shape
+    order = np.argsort(-scores, axis=0, kind="stable")
+    sorted_t = np.take_along_axis(targets, order, axis=0)
+    sorted_s = np.take_along_axis(scores, order, axis=0)
+    tp = np.cumsum(sorted_t, axis=0)
+    k = np.arange(1, n + 1)[:, None]
+    precision = tp / k
+    # only tie-group ends are realizable operating points: a >= threshold
+    # admits a tied group whole, so precision taken mid-group is a cut no
+    # threshold can realize (the same tie handling as average_precision)
+    is_group_end = np.ones_like(sorted_s, dtype=bool)
+    is_group_end[:-1] = sorted_s[:-1] != sorted_s[1:]
+    out = np.full(c, default, np.float32)
+    for j in range(c):
+        if sorted_t[:, j].sum() == 0:
+            continue
+        ok = np.nonzero((precision[:, j] >= target_precision)
+                        & is_group_end[:, j])[0]
+        if len(ok) == 0:
+            continue
+        i = ok[-1]  # deepest realizable cut meeting the precision target
+        lo = sorted_s[i, j]
+        below = sorted_s[i + 1, j] if i + 1 < n else lo - 1e-6
+        t = np.float32((lo + below) / 2.0)
+        if t > lo or t <= below:
+            # the f32 midpoint collapsed onto a boundary (adjacent f32
+            # scores): use lo itself, ``>= lo`` is the chosen cut
+            t = np.float32(lo)
+        out[j] = t
+    return out
 
 
 def events_to_segment_grid(events, n_classes: int, duration_s: float,
@@ -196,3 +261,20 @@ def segment_event_metrics(ref_grids, est_grids) -> Dict[str, float]:
         "macro_f1": float(cls_f1[active].mean()) if active.any()
         else float("nan"),
     }
+
+
+def write_per_class_csv(path: str, scores: np.ndarray, targets: np.ndarray,
+                        class_names=None):
+    """The per-class table as CSV: index, name, AP, AUC, d_prime, n_pos."""
+    import csv as _csv
+
+    stats = per_class_stats(scores, targets)
+    n = len(stats["AP"])
+    names = class_names if class_names is not None else [f"class_{i}" for i in range(n)]
+    with open(path, "w", newline="") as f:
+        w = _csv.writer(f)
+        w.writerow(["index", "name", "AP", "AUC", "d_prime", "n_pos"])
+        n_pos = np.asarray(targets).sum(axis=0)
+        for i in range(n):
+            w.writerow([i, names[i], stats["AP"][i], stats["AUC"][i],
+                        stats["d_prime"][i], int(n_pos[i])])
