@@ -159,14 +159,30 @@ printing its last line:
      both ADPCM encoders bit-exact against numpy at [64, 64000] block 256
      and [8, 77120] block 64, wav decode and the 44.1 -> 16 kHz resample
      within 1e-6 of scipy, host ms each. prep, infer --plot and the AudioSet
-     packer need h5py, matplotlib and tensorflow and are not run here.
+     packer need h5py, matplotlib and tensorflow and are not run here;
+  10. parallelism on the one card (the machine has one device, so meshes
+     name cuda:0 more than once and two ranks share it): the stream-sharded
+     server (8 streams over [cuda:0] x 2, int16 and adpcm4, ring 64, by tick()
+     and the packed tick) against the unsharded server, f32 with TF32 off
+     within rtol 1e-4 / atol 1e-5 and the preset's bf16 within the bf16
+     budget, one mma launch (and on adpcm4 one serial decode) per shard and
+     device step, the ticks timed in turns and profiled; serve --native
+     --shard_streams tagged by tag; tag_clip_time_sharded of a 60 s clip over
+     [cuda:0] x 4 against tag_clip, one mma launch; the train verb on one NCCL
+     rank under torch.distributed.run, its losses against the plain fit's
+     (bit-equal); two gloo ranks (this script with --dp-worker) against one
+     process at the global batch: us8k in f32 (3 steps, losses; 1 step,
+     gradients against a one-ulp control; 1 step at the CPU tests' widths,
+     gradients and parameters strictly) and audioset_full_dp as shipped (2 x
+     128 against 256, losses within 1e-3, step time and idle share per rank).
 Launch counts are set to 0 just before each path (probe, serving on each
 wire, the ring, packed and reload serving paths, the two fronts' soaks and the
 reload soak, each exported artifact's run, training, adpcm4-staged
 training, the flagship forward and train steps, the augmented fit, the SED
-harness, the parity harness, the TensorBoard fit, the streamed fit, and
-phase 9's in-process eval, infer (one-shot, streamed, folder) and embed) is
-driven and read just after. The script prints the card's line
+harness, the parity harness, the TensorBoard fit, the streamed fit,
+phase 9's in-process eval, infer (one-shot, streamed, folder) and embed, and
+phase 10's sharded servers, context-parallel scoring and each rank's fits)
+is driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
 build/chip_smoke.json.
@@ -1766,6 +1782,540 @@ def _checkpoint_verbs(serve_state_dict, packages, train_step_ms, zero_counts, ta
     return rec, fe_paths
 
 
+# phase 10: parallelism on the one card (the card's machine has one device,
+# so every mesh names it more than once and the data-parallel ranks share it)
+PAR_TOL = dict(rtol=1e-4, atol=1e-5)  # sharded against unsharded, f32 (dryrun_multichip's)
+PAR_CLIP_S = 60.0  # the context-parallel clip: 62 patches, not a multiple of 4
+PAR_TIME_SHARDS = 4
+DP_TIMEOUT_S = 600  # each torch.distributed.run launch
+DP_US8K_STEPS = 3  # 10d: us8k in f32, 2 x 32 against 1 x 64
+# us8k in f32. At full width a one-ulp change of the forward (here: the
+# global batch-norm moments summed over two ranks instead of taken over one
+# batch) moves the gradients of the deep convolutions by several 1e-3 of the
+# tensor's largest: max pooling's argmax and ReLU's boundary flip where two
+# values tie within an ulp. A one-process control shows the size of that
+# alone: the same step on its input scaled by 1 + 2^-23. So the full width is
+# held against that control (no further from the one-process gradients than
+# the one-ulp input is, with a factor of 2), and the data-
+# parallel arithmetic at the CPU test's widths and tolerance
+# (tests/test_torch_dp.py): gradients within 1e-7 + GRAD_RTOL x the tensor's
+# largest, parameters within 1e-5 where the gradient is more than twice that
+# from 0 (its sign, and so Adam's first step, certain). Over 3 steps Adam
+# carries such flips into the weights (~lr each), so there the losses are held.
+DP_F32_LOSS_RTOL = 1e-3
+ULP_SCALE = 1.0 + 2.0 ** -23  # the control's one-ulp change of the input
+NARROW = {"model.conv_channels": "8,16", "model.convs_per_stage": 1,
+          "model.embed_dim": 32, "model.hidden_units": 64}  # tests/test_torch_dp.py's
+GRAD_RTOL = 2e-4  # of the tensor's largest gradient, + 1e-7
+DECIDED_GRAD = 1e-6  # 100 x Adam's eps: above it the gradient decides the step
+DP_FLAGSHIP = {"data.n_train_clips": 256, "data.n_eval_clips": 64, "train.num_steps": 3,
+               "train.eval_every": 1000, "train.checkpoint_every": 0, "train.log_every": 1}
+DP_FLAGSHIP_LOSS_RTOL = 1e-3  # bf16, 2 x 128 against 1 x 256: cuDNN's picks differ per batch
+DP_STEP_REPS = 5  # timed flagship steps per process, after fit's three
+
+
+def _dp_runs(ws):
+    """What the data-parallel launches run: (name, config, overrides, f32 with
+    TF32 off)."""
+    us8k = {"model.compute_dtype": "float32", "train.eval_every": 1000,
+            "train.checkpoint_every": 0, "train.log_every": 1}
+    return [("us8k_f32", "us8k_fused_frontend", {**us8k, "train.num_steps": DP_US8K_STEPS},
+             True),
+            ("us8k_f32_step1", "us8k_fused_frontend", {**us8k, "train.num_steps": 1}, True),
+            ("us8k_f32_narrow_step1", "us8k_fused_frontend",
+             {**us8k, **NARROW, "train.num_steps": 1}, True),
+            ("flagship", "audioset_full_dp", DP_FLAGSHIP, False)]
+
+
+def _dp_fit(name, preset, overrides, f32, ws, dp_timing: bool):
+    """One fit in this process (a rank or the single process): losses,
+    counts, front-end launches, the final parameters' and the last step's
+    gradients' path (Adam's first moment over 1 - beta1, exact after one
+    step), peak memory, and for the flagship the step timed on the host
+    clock and profiled."""
+    from mla_tpu_torch._device import tf32_off
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.parallel import distributed
+    from mla_tpu_torch.train import loop
+    from mla_tpu_torch.train.state import make_train_step
+
+    cfg = get_config(preset, overrides)
+    rank = distributed.process_index()
+    ff.LAUNCHES = 0
+    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
+    torch.cuda.reset_peak_memory_stats()
+    with tf32_off() if f32 else contextlib.nullcontext():
+        res = loop.fit(cfg, workspace=os.path.join(ws, name), log=False)
+        torch.cuda.synchronize()
+        rec = {"losses": [h["loss"] for h in res.history], "counts": dict(res.counts),
+               "launches": dict(ff.LAUNCHES_BY_VARIANT),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        params = os.path.join(ws, f"{name}.params.rank{rank}.pt")
+        model, opt = res.state.model, res.state.optimizer
+        torch.save({"params": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "grads": {n: (opt.state[p]["exp_avg"] / (1 - opt.defaults["betas"][0])).cpu()
+                              for n, p in model.named_parameters()} if f32 else {}}, params)
+        rec["params"] = params
+        rec["lr"] = cfg.train.learning_rate
+        if dp_timing:
+            # the step on a seeded random batch (this rank's rows), timed and profiled
+            dev = next(res.state.model.parameters()).device
+            dp = loop.data_parallel(cfg, dev)
+            rows = slice(None) if dp is None else dp.rows
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            n = int(cfg.data.clip_seconds * cfg.frontend.sample_rate)
+            x = (0.1 * torch.randn((cfg.train.batch_size, n), generator=g, device=dev))[rows]
+            y = (torch.rand((cfg.train.batch_size, cfg.model.n_classes), generator=g,
+                            device=dev) < 0.05).float()[rows]
+            step = make_train_step(cfg, res.state.model, "waveform", clip_samples=x.shape[1],
+                                   dp=dp)
+            state = res.state
+            times = []
+            for _ in range(DP_STEP_REPS):
+                t0 = time.perf_counter()
+                state, _ = step(state, x, y)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            _, busy, top, _, _ = _profile(lambda: step(state, x, y), 3)
+            rec["step_ms"] = statistics.median(times)
+            rec["step_times_ms"] = times
+            rec["device_busy_ms"] = busy
+            # this process's device busy against its unprofiled step (a rank's
+            # idle share includes the time the card runs the other rank's work)
+            rec["idle_share"] = None if busy is None else max(0.0, 1.0 - busy / rec["step_ms"])
+            rec["top_ms"] = top[:8]
+        del res, model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dp_worker(job_path):
+    """One rank of a phase-10 data-parallel launch: the group over gloo (two
+    ranks on one card) or NCCL, each run's fit, a JSON record per rank."""
+    sys.path.insert(0, ROOT)
+    from mla_tpu_torch.parallel import distributed
+
+    with open(job_path) as fh:
+        job = json.load(fh)
+    if not distributed.initialize(backend=job["backend"]):
+        raise RuntimeError("no process group: run under torch.distributed.run")
+    rank = distributed.process_index()
+    out = {"rank": rank, "world": distributed.process_count(),
+           "device": str(torch.cuda.current_device())}
+    try:
+        for name, *run in _dp_runs(job["ws"]):
+            out[name] = _dp_fit(name, *run, job["ws"], dp_timing=name == "flagship")
+        with open(f"{job['out']}.rank{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _launch(nproc, args, timeout=DP_TIMEOUT_S):
+    """``python -m torch.distributed.run --nproc_per_node nproc args`` from
+    the repo root, in its own session so a hung rank is killed with the
+    launcher; returns (rc, output tail, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "127.0.0.1", "--master_port", str(29500 + nproc)] + args
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT,
+                                                "OMP_NUM_THREADS": "2"},
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        import signal
+
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0]
+        raise RuntimeError(f"{' '.join(args)}: no end in {timeout} s: {out[-3000:]}")
+    return proc.returncode, out[-6000:], time.perf_counter() - t0
+
+
+def _step1_check(ours, ref, lr) -> dict:
+    """One train step against another from the same weights: the largest
+    gradient difference over the CPU test's tolerance (1e-7 + GRAD_RTOL x
+    the tensor's largest gradient) and its tensor; the largest parameter
+    difference where the gradient is more than twice that tolerance (and
+    DECIDED_GRAD) from 0, so that its sign, and with it Adam's first step,
+    is certain; whether every parameter is within two Adam steps (2 lr)."""
+    worst, worst_k, undecided, dec_diff, bounded = 0.0, None, 0, 0.0, True
+    for k, g in ref["grads"].items():
+        tol = 1e-7 + GRAD_RTOL * float(g.abs().max())
+        r = float((ours["grads"][k] - g).abs().max()) / tol
+        if r > worst:
+            worst, worst_k = r, k
+        decided = g.abs() >= max(DECIDED_GRAD, 2 * tol)
+        undecided += int((~decided).sum())
+        d = (ours["params"][k] - ref["params"][k]).abs()
+        if decided.any():
+            dec_diff = max(dec_diff, float(d[decided].max()))
+        bounded &= float(d.max()) <= 2 * lr * (1 + 1e-6) + 1e-7
+    return {"grad_diff_over_tol": worst, "worst_tensor": worst_k,
+            "decided_param_max_abs_diff": dec_diff, "undecided_entries": undecided,
+            "bounded": bounded}
+
+
+def _ulp_control(preset, overrides) -> dict:
+    """The one-process step on fit's first batch and on that batch scaled by
+    ULP_SCALE (f32, TF32 off), each as {"params", "grads"}: how far a one-ulp
+    change of the forward alone moves one step."""
+    from mla_tpu_torch._device import tf32_off
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.data.sampler import BalancedSampler
+    from mla_tpu_torch.data.synthetic import make_dataset
+    from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.train.state import create_train_state, make_train_step
+
+    cfg = get_config(preset, overrides)
+    ds = make_dataset(cfg.data, cfg.model.n_classes, "train", "waveform", cfg.frontend)
+    idx = BalancedSampler(ds.y, cfg.train.batch_size, cfg.train.seed).next_batch()
+    x = np.ascontiguousarray(ds.x[idx])
+    y = torch.from_numpy(np.asarray(ds.y[idx], np.float32)).cuda()
+    out = []
+    with tf32_off():
+        for xs in (x, (x * np.float32(ULP_SCALE)).astype(np.float32)):
+            model = build_model(cfg.model, seed=cfg.train.seed)
+            st, _ = make_train_step(cfg, model, "waveform", clip_samples=x.shape[1])(
+                create_train_state(cfg, model), torch.from_numpy(xs).cuda(), y)
+            opt = st.optimizer
+            out.append({"params": {k: v.cpu() for k, v in model.state_dict().items()},
+                        "grads": {n: (opt.state[p]["exp_avg"] / (1 - opt.defaults["betas"][0]))
+                                  .cpu() for n, p in model.named_parameters()}})
+            del model, st, opt
+    return {"step": out[0], "scaled": out[1], "lr": cfg.train.learning_rate}
+
+
+def _csv_losses(path):
+    with open(path) as fh:
+        return {int(r["step"]): float(r["value"]) for r in csv.DictReader(fh)
+                if r["key"] == "loss"}
+
+
+def _parallelism(scfg, state_dict, streams, schedule, zero_counts, check_launches, tag):
+    """Phase 10: the stream-sharded server (10a), context-parallel scoring
+    (10b), a one-rank NCCL fit through the train verb (10c), and two gloo
+    ranks on the one card (10d). Returns (record, front-end launches by
+    path, decode launches by path)."""
+    from mla_tpu_torch._device import tf32_off
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.data.audio_io import write_wav
+    from mla_tpu_torch.ops import adpcm as ad
+    from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.parallel.mesh import make_mesh
+    from mla_tpu_torch.serve.server import BatchedStreamingServer
+    from mla_tpu_torch.serve.sharded import tag_clip_time_sharded
+    from mla_tpu_torch.serve.streaming import tag_clip
+    from mla_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    rec, fe_paths, dec_paths = {}, {}, {}
+    f32cfg = dataclasses.replace(scfg, model=dataclasses.replace(scfg.model,
+                                                                 compute_dtype="float32"))
+    card = torch.device("cuda", 0)
+    mesh2 = make_mesh(devices=[card] * 2)
+
+    # 10a. the stream-sharded server: 8 streams over [cuda:0] x 2 against the
+    # unsharded server on the same schedule, by tick() and by the packed tick,
+    # with the ring; f32 (TF32 off) against the tolerance, the preset's bf16
+    # against the bf16 budget (a shard's batch of 4 may take other cuDNN
+    # algorithms than the batch of 8)
+    serve = {}
+    for wire in ("int16", "adpcm4"):
+        for packed in (False, True):
+            for label, cfg_, tol in (("f32", f32cfg, PAR_TOL), ("bf16", scfg, None)):
+                key = f"{wire} {'packed' if packed else 'tick'} {label}"
+                kw = dict(max_streams=8, chunk_patches=5, transfer_dtype=wire,
+                          timeline_cap=TIMELINE_CAP)
+                with tf32_off() if label == "f32" else contextlib.nullcontext():
+                    plain = BatchedStreamingServer(cfg_, state_dict, **kw)
+                    plain.warmup(packed=True)
+                    want = _drive(plain, streams, schedule, packed)
+                    shard = BatchedStreamingServer(cfg_, state_dict, mesh=mesh2, **kw)
+                    shard.warmup(packed=True)
+                    zero_counts()
+                    d0 = shard.dispatches
+                    got = _drive(shard, streams, schedule, packed)
+                    torch.cuda.synchronize()
+                steps = (shard.dispatches - d0) * len(shard._shards)
+                launches = check_launches(f"10a sharded server {key} (2 shards)", steps,
+                                          wire == "adpcm4")
+                err = float(np.abs(got - want).max())
+                ok = (np.allclose(got, want, **tol) if tol is not None
+                      else err <= BF16_SCORE_BUDGET)
+                serve[key] = {"max_abs_err": err, "device_steps": shard.dispatches - d0,
+                              **launches}
+                print(f"10a sharded server, {key}: {shard.dispatches - d0} device steps x 2 "
+                      f"shards; scores against the unsharded server max |diff| {err:.3e} "
+                      f"({'rtol 1e-4 atol 1e-5' if tol else f'bf16 budget {BF16_SCORE_BUDGET}'})")
+                if not ok or not np.isfinite(got).all():
+                    raise RuntimeError(f"10a {key}: sharded scores against unsharded {err}")
+                path = f"serve_sharded_{wire}_{'packed' if packed else 'tick'}_{label}"
+                fe_paths[path] = launches["frontend_launches"]
+                if wire == "adpcm4":
+                    dec_paths[path] = launches["decode_launches"]
+                del plain, shard
+    # the tick on the host clock, sharded against unsharded, in turns, and a
+    # profile of ten of each (int16, ring off: phase 7's first row)
+    tick_srv = {}
+    for label, m in (("unsharded", None), ("sharded", mesh2)):
+        s = BatchedStreamingServer(scfg, state_dict, max_streams=8, chunk_patches=5,
+                                   transfer_dtype="int16", mesh=m)
+        s.warmup(packed=True)
+        # ticks for the turns, the profile's warm-up and its ten, and spare
+        audio = (0.1 * np.random.default_rng(SEED).standard_normal(
+            s.chunk_samples + (2 * (REPS + 3 + 10 + 1) + 2) * s.hop_samples)).astype(np.float32)
+        for _ in range(8):
+            s.feed(s.open(), audio)
+        tick_srv[label] = s
+    fns = {f"{k} {kind}": getattr(s, "tick_packed" if kind == "packed" else "tick")
+           for k, s in tick_srv.items() for kind in ("tick", "packed")}
+    med, _ = _in_turns(fns)
+    tick_rec = {"ms": med}
+    for k, fn in fns.items():
+        tick_rec[f"{k} profile"] = _report_profile(f"10a {k}", 10, med[k], _profile(fn, 10), tag)
+    print("10a ticks, int16, 8 streams x 5 patches, host clock in turns: " + "; ".join(
+        f"{k} {med[k]:.4f} ms (busy {tick_rec[k + ' profile']['device_busy_ms']:.4f}, idle "
+        f"{tick_rec[k + ' profile']['idle_share']:.4f})" for k in fns)
+        + f"; sharded / unsharded host {med['sharded tick'] / med['unsharded tick']:.4f}, "
+        f"busy {tick_rec['sharded tick profile']['device_busy_ms'] / tick_rec['unsharded tick profile']['device_busy_ms']:.4f} {tag}")  # noqa: E501
+    del tick_srv
+    rec["serve"], rec["ticks"] = serve, tick_rec
+
+    # the verb: serve --native --shard_streams (every visible card: a 1-shard
+    # mesh here), tagged by tag
+    clip = os.path.join(ROOT, "build", "parallel_clip.wav")
+    write_wav(clip, streams[2][:10 * 16000], 16000)
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    err_path = os.path.join(ROOT, "build", "parallel_serve.err")
+    with open(err_path, "w") as err_fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mla_tpu_torch", "serve", "--native", "--shard_streams",
+             "--checkpoint", "random", "--port", "0", "--set", "frontend.impl=pallas"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err_fh, text=True)
+        try:
+            import select
+
+            ready, _, _ = select.select([proc.stdout], [], [], CLI_TIMEOUT_S)
+            line = proc.stdout.readline() if ready else ""
+            if "streams sharded over {'data': 1, 'model': 1}" not in line:
+                raise RuntimeError(f"serve --shard_streams did not start: {line!r}; stderr "
+                                   f"{open(err_path).read()[-2000:]}")
+            url = line.split(" on ")[1].split("/v1")[0]
+            out = subprocess.run([sys.executable, "-m", "mla_tpu_torch", "tag", "--url", url,
+                                  "--wav", clip], cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=CLI_TIMEOUT_S)
+            if out.returncode != 0:
+                raise RuntimeError(f"tag failed: {out.stderr[-2000:]}")
+            top = json.loads(out.stdout.strip().splitlines()[-1])["top_k"]
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()
+    if len(top) != 5 or not all(np.isfinite(p) for _, p in top):
+        raise RuntimeError(f"serve --shard_streams + tag: {top}")
+    rec["cli"] = {"line": line.strip(), "top_k": top}
+    print(f"10a verbs: `{line.strip()}`; `tag` printed {top}; the server terminated")
+
+    # 10b. context-parallel scoring: a 60 s clip over [cuda:0] x 4 against
+    # tag_clip; one front-end launch for the whole clip
+    sr = scfg.frontend.sample_rate
+    n = int(PAR_CLIP_S * sr)
+    t = np.arange(n) / sr
+    clip60 = (0.3 * np.sin(2 * np.pi * 330 * t)
+              + 0.05 * np.random.default_rng(SEED + 1).standard_normal(n)).astype(np.float32)
+    mesh4 = make_mesh(devices=[card] * PAR_TIME_SHARDS)
+    cp = {}
+    for label, cfg_ in (("f32", f32cfg), ("bf16", scfg)):
+        with tf32_off() if label == "f32" else contextlib.nullcontext():
+            want = tag_clip(cfg_, state_dict, clip60)
+            zero_counts()
+            got = tag_clip_time_sharded(cfg_, state_dict, clip60, mesh4)
+            torch.cuda.synchronize()
+            fe_l = dict(ff.LAUNCHES_BY_VARIANT)
+            t0 = time.perf_counter()
+            tag_clip_time_sharded(cfg_, state_dict, clip60, mesh4)
+            sharded_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tag_clip(cfg_, state_dict, clip60)
+            whole_s = time.perf_counter() - t0
+        err = float(np.abs(got - want).max())
+        ok = (np.allclose(got, want, **PAR_TOL) if label == "f32"
+              else err <= BF16_SCORE_BUDGET)
+        cp[label] = {"max_abs_err": err, "frontend_launches": fe_l,
+                     "sharded_host_ms": sharded_s * 1e3, "whole_host_ms": whole_s * 1e3}
+        print(f"10b context-parallel {label}: {PAR_CLIP_S:g} s clip over {PAR_TIME_SHARDS} "
+              f"shards of cuda:0 against tag_clip max |diff| {err:.3e}; front-end launches "
+              f"{fe_l}; host {sharded_s * 1e3:.2f} ms (whole clip {whole_s * 1e3:.2f} ms, "
+              f"each with its model build) {tag}")
+        if not ok or fe_l != {"mma": 1, "simt": 0} or not np.isfinite(got).all():
+            raise RuntimeError(f"10b {label}: {cp[label]}")
+    fe_paths.update({f"context_parallel_{k}": v["frontend_launches"] for k, v in cp.items()})
+    rec["context_parallel"] = cp
+
+    # 10c. the train verb under torch.distributed.run, one rank on NCCL,
+    # against the plain fit of the same steps in this process under the
+    # subprocess's default TF32 flags, twice
+    set_args = ["train.num_steps=10", "train.eval_every=10", "train.checkpoint_every=0",
+                "train.log_every=1"]
+    ws1 = os.path.join(ROOT, "build", "chip_smoke_dp1")
+    shutil.rmtree(ws1, ignore_errors=True)
+    rc, out, dp1_s = _launch(1, ["-m", "mla_tpu_torch", "train", "--config",
+                                 "us8k_fused_frontend", "--workspace", ws1, "--set"] + set_args)
+    if rc != 0:
+        raise RuntimeError(f"10c: the one-rank train verb failed ({rc}): {out}")
+    dp1 = _csv_losses(os.path.join(ws1, "scalars.csv"))
+    cfg10 = get_config("us8k_fused_frontend", dict(a.split("=") for a in set_args))
+    plain = []
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as in the subprocess
+    try:
+        for i in range(2):
+            wsp = os.path.join(ROOT, "build", f"chip_smoke_plain{i}")
+            shutil.rmtree(wsp, ignore_errors=True)
+            zero_counts()
+            res = loop.fit(cfg10, workspace=wsp, log=False)
+            plain.append({h["step"]: h["loss"] for h in res.history})
+            plain_fe = dict(ff.LAUNCHES_BY_VARIANT)
+            del res
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+    steps = sorted(dp1)
+    diff = max(abs(dp1[s] - plain[0][s]) for s in steps)
+    replay = max(abs(plain[1][s] - plain[0][s]) for s in steps)
+    rec["one_rank"] = {"losses": [dp1[s] for s in steps], "plain": [plain[0][s] for s in steps],
+                       "max_abs_diff": diff, "bit_equal": diff == 0.0,
+                       "plain_replay_max_abs_diff": replay, "s": dp1_s,
+                       "plain_launches": plain_fe}
+    print(f"10c one NCCL rank (torch.distributed.run, the train verb, {len(steps)} logged steps "
+          f"in {dp1_s:.1f} s): losses against the plain fit max |diff| {diff:.3e} "
+          f"({'bit-equal' if diff == 0.0 else 'not bit-equal'}); the plain fit against itself "
+          f"{replay:.3e}; its launches {plain_fe}")
+    if steps != list(range(1, 11)) or not np.isfinite([dp1[s] for s in steps]).all():
+        raise RuntimeError(f"10c: losses {dp1}")
+    if diff > max(replay, 0.0) * 10 + 1e-6:
+        raise RuntimeError(f"10c: the one-rank fit differs from the plain fit by {diff} "
+                           f"(the plain fit replays within {replay})")
+
+    # 10d. two gloo ranks on the one card, each run against the single
+    # process at the global batch; the flagship's step timed before and after
+    ws2 = os.path.join(ROOT, "build", "chip_smoke_dp2")
+    shutil.rmtree(ws2, ignore_errors=True)
+    os.makedirs(ws2)
+    runs = {r[0]: r[1:] for r in _dp_runs(ws2)}
+    single = {}
+    torch.cuda.empty_cache()
+    for name, run in runs.items():
+        single[name] = _dp_fit(name + "_single", *run, ws2, dp_timing=name == "flagship")
+    ulp = _ulp_control(*runs["us8k_f32_step1"][:2])
+    job = os.path.join(ws2, "job.json")
+    with open(job, "w") as fh:
+        json.dump({"backend": "gloo", "ws": ws2, "out": os.path.join(ws2, "out")}, fh)
+    torch.cuda.empty_cache()
+    rc, out, dp2_s = _launch(2, [os.path.join(ROOT, "chip_smoke.py"), "--dp-worker", job])
+    if rc != 0:
+        raise RuntimeError(f"10d: the two gloo ranks failed ({rc}): {out}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(ws2, f"out.rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    after = _dp_fit("flagship_single_after", *runs["flagship"], ws2, dp_timing=True)
+
+    def max_diff(a, b, keys):
+        return max([float((a[k] - b[k]).abs().max()) for k in keys] or [0.0])
+
+    dp = {"s": dp2_s}
+    for name in runs:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        ref = single[name]
+        s0, s1, sref = (torch.load(p["params"]) for p in (r0, r1, ref))
+        p0, ps = s0["params"], sref["params"]
+        same = all(torch.equal(p0[k], s1["params"][k]) for k in p0)
+        l0, lref = np.array(r0["losses"]), np.array(ref["losses"])
+        lrel = float(np.max(np.abs(l0 - lref) / np.abs(lref)))
+        # one front-end launch per step and eval batch where the preset takes the
+        # kernel (us8k); the flagship ships the torch-ops front-end ("xla")
+        impl = get_config(runs[name][0], runs[name][1]).frontend.impl
+        want_fe = (r0["counts"]["train_steps"] + r0["counts"]["eval_batches"]
+                   if impl == "pallas" else 0)
+        entry = {"losses": r0["losses"], "single_losses": ref["losses"],
+                 "loss_max_rel_diff": lrel, "first_loss_abs_diff": float(abs(l0[0] - lref[0])),
+                 "param_max_abs_diff": max_diff(p0, ps, p0), "ranks_equal": same,
+                 "launches": [r0["launches"], r1["launches"]], "counts": r0["counts"],
+                 "peak_gb": [r0["peak_gb"], r1["peak_gb"]], "single_peak_gb": ref["peak_gb"]}
+        print(f"10d {name}, 2 gloo ranks on cuda:0 against 1 process at the global batch: "
+              f"losses {r0['losses']} against {ref['losses']} (max rel diff {lrel:.3e}); "
+              f"parameters max |diff| {entry['param_max_abs_diff']:.3e}; ranks equal {same}; "
+              f"mma launches per rank {[r['launches'] for r in (r0, r1)]} (want {want_fe}, "
+              f"front-end {impl!r}); peak GB per rank {r0['peak_gb']:.2f} / "
+              f"{r1['peak_gb']:.2f}, single {ref['peak_gb']:.2f} {tag}")
+        if not same or any(r["launches"] != {"mma": want_fe, "simt": 0} for r in (r0, r1)):
+            raise RuntimeError(f"10d {name}: {entry}")
+        if not np.isfinite(l0).all():
+            raise RuntimeError(f"10d {name}: non-finite losses {l0}")
+        if name == "us8k_f32":
+            if entry["first_loss_abs_diff"] > 1e-5 or lrel > DP_F32_LOSS_RTOL:
+                raise RuntimeError(f"10d {name}: {entry}")
+        elif name.startswith("us8k_f32"):
+            entry.update(_step1_check(s0, sref, r0["lr"]))
+            if name == "us8k_f32_step1":
+                entry["same_as_control_step"] = _step1_check(ulp["step"], sref, ulp["lr"])
+                entry["ulp_control"] = _step1_check(ulp["scaled"], ulp["step"], ulp["lr"])
+            print(f"10d {name}: gradients against the single process, the largest |diff| "
+                  f"over its tolerance (1e-7 + {GRAD_RTOL:g} x the tensor's largest) "
+                  f"{entry['grad_diff_over_tol']:.4f} in {entry['worst_tensor']}; parameters "
+                  f"where |g| is over twice that and {DECIDED_GRAD:g}: max |diff| "
+                  f"{entry['decided_param_max_abs_diff']:.3e}; {entry['undecided_entries']} "
+                  f"entries below, all within two Adam steps: {entry['bounded']}"
+                  + (f"; the one-process step on the input x {ULP_SCALE!r} against it: "
+                     f"{entry['ulp_control']['grad_diff_over_tol']:.4f} in "
+                     f"{entry['ulp_control']['worst_tensor']} (the control's own step against "
+                     f"the fit's: {entry['same_as_control_step']['grad_diff_over_tol']:.4f})"
+                     if "ulp_control" in entry else ""))
+            if not entry["bounded"] or entry["first_loss_abs_diff"] > 1e-5:
+                raise RuntimeError(f"10d {name}: {entry}")
+            if name == "us8k_f32_step1" and entry["grad_diff_over_tol"] > max(
+                    1.0, 2 * entry["ulp_control"]["grad_diff_over_tol"]):
+                raise RuntimeError(f"10d {name}: further than the one-ulp control: {entry}")
+            if name == "us8k_f32_narrow_step1" and (
+                    entry["grad_diff_over_tol"] > 1.0
+                    or entry["decided_param_max_abs_diff"] > 1e-5):
+                raise RuntimeError(f"10d {name}: {entry}")
+        elif lrel > DP_FLAGSHIP_LOSS_RTOL:
+            raise RuntimeError(f"10d {name}: {entry}")
+        else:
+            entry.update(step_ms=[r0["step_ms"], r1["step_ms"]],
+                         idle_share=[r0["idle_share"], r1["idle_share"]],
+                         busy_ms=[r0["device_busy_ms"], r1["device_busy_ms"]],
+                         single_step_ms=[ref["step_ms"], after["step_ms"]],
+                         single_idle_share=[ref["idle_share"], after["idle_share"]],
+                         rank0_top_ms=r0["top_ms"])
+            def share(v):
+                return "not measured" if v is None else f"{v:.4f}"
+
+            print(f"10d flagship step (batch 256): 2 gloo ranks of 128 on one card "
+                  f"{r0['step_ms']:.2f} / {r1['step_ms']:.2f} ms (idle share "
+                  f"{share(r0['idle_share'])} / {share(r1['idle_share'])}); one process "
+                  f"{ref['step_ms']:.2f} ms before, {after['step_ms']:.2f} after (idle "
+                  f"{share(ref['idle_share'])} / {share(after['idle_share'])}); rank 0's top "
+                  f"device ops {r0['top_ms'][:4]}. Two processes share one card: this measures "
+                  f"the code path, not scaling {tag}")
+        fe_paths[f"dp_{name}_rank0"] = r0["launches"]
+        fe_paths[f"dp_{name}_rank1"] = r1["launches"]
+        dp[name] = entry
+    rec["dp"] = dp
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 10: {rec['phase_s']:.1f} s {tag}")
+    return rec, fe_paths, dec_paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs the port on "
@@ -2839,7 +3389,14 @@ def main() -> int:
     finally:
         torch.backends.cudnn.allow_tf32 = False
     record["phase9"] = phase9
+
+    # 10. parallelism on the one card: the stream-sharded server, context-
+    # parallel scoring, data parallelism on one NCCL rank and on two gloo ranks
+    phase10, phase10_fe, phase10_dec = _parallelism(scfg, state_dict, streams, schedule,
+                                                    zero_counts, check_launches, tag)
+    record["phase10"] = phase10
     dec_by_path.update(phase8_dec)
+    dec_by_path.update(phase10_dec)
     dec_launches_by_variant = {v: sum(p[v] for p in dec_by_path.values())
                                for v in DECODE_VARIANTS}
 
@@ -2851,7 +3408,7 @@ def main() -> int:
                   **{p: r["frontend_launches"] for p, r in new_paths.items()},
                   "train_adpcm4": a_fe, **leftover_fe, "flagship_forward": fwd_launches,
                   "flagship_train": flagship["pallas"]["frontend_launches"], **phase8_fe,
-                  **phase9_fe}
+                  **phase9_fe, **phase10_fe}
     kernels = [{
         "name": "fused_log_mel_patches",
         "variant": "mma",
@@ -2966,4 +3523,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 10's gloo launch
+        sys.exit(_dp_worker(sys.argv[2]))
     sys.exit(main())

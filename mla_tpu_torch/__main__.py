@@ -180,36 +180,67 @@ def cmd_extract(args):
     print(f"{args.wav}: {len(wav)} samples -> patches {patches.shape} -> {args.out}")
 
 
+def _initialize(args):
+    """Bring up the process group when a launcher set one up (e.g. ``python
+    -m torch.distributed.run --nproc_per_node N -m mla_tpu_torch train``);
+    gloo for --device cpu, otherwise the card's default."""
+    from mla_tpu_torch.parallel.distributed import initialize
+
+    return initialize(backend="gloo" if args.device == "cpu" else None)
+
+
 def cmd_train(args):
+    from mla_tpu_torch.parallel import distributed
     from mla_tpu_torch.train.loop import fit
 
-    cfg = _load_cfg(args)
-    result = fit(cfg, workspace=args.workspace, auto_resume=args.resume, device=args.device)
-    last_eval = result.eval_stats[-1] if result.eval_stats else {}
-    print(_jdump({"final_loss": result.history[-1]["loss"] if result.history else None,
-                  **last_eval,
-                  **({"interrupted": True} if result.interrupted else {})}))
+    _initialize(args)
+    try:
+        cfg = _load_cfg(args)
+        result = fit(cfg, workspace=args.workspace, auto_resume=args.resume, device=args.device)
+        last_eval = result.eval_stats[-1] if result.eval_stats else {}
+        if distributed.is_primary():
+            print(_jdump({"final_loss": result.history[-1]["loss"] if result.history else None,
+                          **last_eval,
+                          **({"interrupted": True} if result.interrupted else {})}))
+    finally:
+        distributed.shutdown()
 
 
 def cmd_eval(args):
     """calculate_stats on the eval set from the latest checkpoint, on
     --device; with --per_class, --calibrate and --events the per-class
     table, the calibrated thresholds and the event-detection scores."""
+    from mla_tpu_torch.parallel import distributed
+
+    _initialize(args)
+    try:
+        _eval(args, distributed.is_primary())
+    finally:
+        distributed.shutdown()
+
+
+def _eval(args, primary: bool):
+    """The eval verb's work; in a process group every rank forwards its
+    rows of each batch and only the primary writes and prints."""
     from mla_tpu_torch._device import resolve_device
     from mla_tpu_torch.data.labels import labels_for
     from mla_tpu_torch.data.synthetic import make_dataset
-    from mla_tpu_torch.train.loop import eval_scores, resume
+    from mla_tpu_torch.train.loop import data_parallel, eval_scores, resume
     from mla_tpu_torch.train.state import eval_params, make_eval_step, variables_from_state
     from mla_tpu_torch.utils.metrics import calculate_stats
 
     cfg = _load_cfg(args)
     dev = resolve_device(args.device)
+    dp = data_parallel(cfg, dev)
     state, _ = resume(cfg, args.workspace, device=dev)
     kind = _input_kind(cfg)
     eval_ds = make_dataset(cfg.data, cfg.model.n_classes, "eval", kind, cfg.frontend)
     # one pass, each batch uploaded and the last padded by repeating its
     # last row: the scores feed the stats and the per-class outputs alike
-    scores = eval_scores(cfg, state, eval_ds, make_eval_step(cfg, state.model, kind), dev)
+    scores = eval_scores(cfg, state, eval_ds, make_eval_step(cfg, state.model, kind), dev,
+                         dp=dp)
+    if not primary:
+        return
     stats = calculate_stats(scores, eval_ds.y)
     names = labels_for(cfg.data.dataset, cfg.model.n_classes)
     if args.per_class:
@@ -643,9 +674,16 @@ def cmd_serve(args):
         return (variables_from_state(state, eval_params(cfg, state)),
                 {"step": int(state.step)})
 
+    mesh = None
+    if args.shard_streams:
+        from mla_tpu_torch.parallel import mesh as pmesh
+
+        # every visible card (--device cpu: the CPU as one shard)
+        mesh = pmesh.make_mesh(devices=["cpu"] if args.device == "cpu" else None)
     kwargs = dict(port=args.port, host=args.host, max_streams=args.max_streams,
                   chunk_patches=args.chunk_patches, transfer_dtype=args.transfer_dtype,
-                  timeline_cap=args.timeline_cap, reload_fn=reload_fn, device=args.device)
+                  timeline_cap=args.timeline_cap, reload_fn=reload_fn, device=args.device,
+                  mesh=mesh)
     if args.native:
         from mla_tpu_torch.serve.native_front import create_native_server
 
@@ -655,9 +693,10 @@ def cmd_serve(args):
     if args.reload_every > 0:
         start_reload_watcher(srv, ckdir, args.reload_every, initial_step=loaded_step)
     host, port = srv.server_address[:2]
+    sharded = f", streams sharded over {mesh.shape}" if mesh is not None else ""
     front = "native C++ front" if args.native else "stdlib front"
     print(f"serving {cfg.model.variant} on http://{host}:{port}/v1 "
-          f"({front}, max_streams={args.max_streams})", flush=True)
+          f"({front}, max_streams={args.max_streams}{sharded})", flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -943,6 +982,9 @@ def main(argv=None):
                          "host-to-device bytes of float32, uint8 (8-bit mu-law) quarters "
                          "them, adpcm4 / adpcm2 (block ADPCM, decoded on the card) are "
                          "~1/8 and ~1/13")
+    ss.add_argument("--shard_streams", action="store_true",
+                    help="shard the per-tick stream axis over all visible cards "
+                         "(max_streams must divide by the card count)")
     ss.add_argument("--native", action="store_true",
                     help="serve through the C++ front (native/serve_front.cpp): HTTP "
                          "parsing, stream buffers and backpressure run without the GIL; "

@@ -11,7 +11,7 @@ from the generator the caller passes in; in eval mode it is the identity.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -20,10 +20,22 @@ from mla_tpu_torch.models.trunk import Dense
 from mla_tpu_torch.ops.attention_pool import attention_pool
 
 
-def dropout(h: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+class GlobalRows(NamedTuple):
+    """A dropout generator for one data-parallel rank: the masks are drawn
+    for the whole ``batch`` rows and this rank keeps ``rows``, so the ranks
+    together draw what one process draws for the global batch."""
+
+    generator: torch.Generator
+    batch: int
+    rows: slice
+
+
+def dropout(h: torch.Tensor, rate: float,
+            generator: Optional[Union[torch.Generator, GlobalRows]]) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep each element with probability
     1 - rate and scale it by 1 / (1 - rate). The mask comes from
-    ``generator`` (on ``h``'s device), never from the global generator."""
+    ``generator`` (on ``h``'s device), never from the global generator; a
+    ``GlobalRows`` draws the global batch's mask and takes its rows."""
     if rate == 0.0:
         return h
     if rate == 1.0:
@@ -31,7 +43,12 @@ def dropout(h: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator (pass generator=...)")
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    if isinstance(generator, GlobalRows):
+        u = torch.rand((generator.batch,) + tuple(h.shape[1:]), generator=generator.generator,
+                       device=h.device)[generator.rows]
+    else:
+        u = torch.rand(h.shape, generator=generator, device=h.device)
+    mask = u < keep
     return torch.where(mask, h / keep, torch.zeros_like(h))
 
 

@@ -21,8 +21,11 @@ import contextlib
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mla_tpu_torch.parallel.distributed import all_reduce_sum
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default epsilon
 _GN_EPS = 1e-6  # flax nn.GroupNorm's default epsilon (torch's GroupNorm uses 1e-5)
@@ -51,16 +54,31 @@ class _BatchNorm(nn.BatchNorm2d):
     is why the update is written here rather than left to F.batch_norm,
     whose running variance is unbiased. ``num_batches_tracked`` is not
     touched, and with ``update_stats`` False (:func:`frozen_statistics`) the
-    running statistics are not either."""
+    running statistics are not either.
+
+    With ``group`` set (:func:`global_statistics`, data parallelism over
+    more than one rank) the moments are those of the global batch, as
+    under the reference's ``pjit``: every rank all-reduces its [sum x, sum
+    x^2] through an autograd all-reduce, so the gradient is the
+    global-batch one once the ranks' gradients are averaged, and every
+    rank's running statistics stay equal."""
 
     update_stats = True
+    group = None  # the data-parallel process group, or None: this batch alone
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            if self.group is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                sq = (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                                   (xf * xf).sum(dim=(0, 2, 3))]), self.group)
+                count = xf.numel() // xf.shape[1] * dist.get_world_size(self.group)
+                mean, sq = sums[0] / count, sums[1] / count
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = _BN_MOMENTUM
@@ -86,6 +104,20 @@ def frozen_statistics(module: nn.Module):
     finally:
         for m in norms:
             m.update_stats = True
+
+
+@contextlib.contextmanager
+def global_statistics(module: nn.Module, group):
+    """Within the block, every batch norm of ``module`` takes its train-mode
+    moments over ``group``'s global batch (None: each rank's own batch)."""
+    norms = [m for m in module.modules() if isinstance(m, _BatchNorm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 def _conv3x3(conv: nn.Conv2d, x: torch.Tensor, dt) -> torch.Tensor:

@@ -14,8 +14,10 @@ segments carry gate logits of -inf and add nothing under every gate. The
 The timeline ring (``TimelineState``) keeps the last ``cap`` patches' gate
 logits and segment probabilities per stream on the device, written beside
 the fold; ``read_timeline`` turns one stream's window into per-patch
-weights with one device-to-host copy. The cross-device merge is not ported
-yet (ROADMAP.md queue A, item 9).
+weights with one device-to-host copy. Partial states of one clip's time
+shards combine exactly: ``combine_stream_states`` over a single-process
+mesh's list of shard states, ``psum_stream_state`` over a process group
+(the global maximum first, then the rescaled sums).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 _EPS = 1e-7
@@ -157,7 +160,7 @@ def update_stream_state(
 
 
 def merge_stream_states(a: StreamState, b: StreamState, att_activation: str = "exp") -> StreamState:
-    """Associatively merge two partial states (chunk tree)."""
+    """Associatively merge two partial states (chunk tree or time shards)."""
     if att_activation == "max":
         return StreamState(torch.maximum(a.num, b.num), torch.maximum(a.den, b.den), a.m)
     if att_activation == "exp":
@@ -166,6 +169,49 @@ def merge_stream_states(a: StreamState, b: StreamState, att_activation: str = "e
         sb = torch.where(torch.isfinite(b.m), torch.exp(b.m - new_m), 0.0)
         return StreamState(a.num * sa + b.num * sb, a.den * sa + b.den * sb, new_m)
     return StreamState(a.num + b.num, a.den + b.den, a.m)
+
+
+def combine_stream_states(states, att_activation: str = "exp", device=None) -> StreamState:
+    """Combine the partial states of one clip's time shards, each a
+    ``StreamState`` on its own device (a single-process mesh), into one on
+    ``device`` (None: the first state's): the arithmetic of
+    :func:`psum_stream_state` (for the exp gate the global maximum first,
+    then each shard's sums rescaled to it and added)."""
+    dev = states[0].num.device if device is None else torch.device(device)
+    parts = [StreamState(*(t.to(dev) for t in st)) for st in states]
+
+    def stack(i):
+        return torch.stack([st[i] for st in parts])
+
+    num, den, m = stack(0), stack(1), stack(2)
+    if att_activation == "max":
+        return StreamState(num.amax(0), den.amax(0), parts[0].m)
+    if att_activation == "exp":
+        global_m = m.amax(0)
+        scale = torch.where(torch.isfinite(m), torch.exp(m - global_m), 0.0)
+        return StreamState((num * scale).sum(0), (den * scale).sum(0), global_m)
+    return StreamState(num.sum(0), den.sum(0), parts[0].m)
+
+
+def psum_stream_state(state: StreamState, group=None, att_activation: str = "exp") -> StreamState:
+    """Combine time-sharded partial states across the ranks of ``group``
+    (None: the default process group): the reference's pmax / psum as
+    ``all_reduce`` MAX / SUM. Every rank gets the same combined state."""
+    def reduce(t, op):
+        t = t.clone()
+        dist.all_reduce(t, op=op, group=group)
+        return t
+
+    if att_activation == "max":
+        return StreamState(reduce(state.num, dist.ReduceOp.MAX),
+                           reduce(state.den, dist.ReduceOp.MAX), state.m)
+    if att_activation == "exp":
+        global_m = reduce(state.m, dist.ReduceOp.MAX)
+        scale = torch.where(torch.isfinite(state.m), torch.exp(state.m - global_m), 0.0)
+        return StreamState(reduce(state.num * scale, dist.ReduceOp.SUM),
+                           reduce(state.den * scale, dist.ReduceOp.SUM), global_m)
+    return StreamState(reduce(state.num, dist.ReduceOp.SUM),
+                       reduce(state.den, dist.ReduceOp.SUM), state.m)
 
 
 def stream_finalize(state: StreamState) -> torch.Tensor:

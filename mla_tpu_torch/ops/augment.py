@@ -99,13 +99,19 @@ def mixup_draws(b: int, generator: torch.Generator,
     return perm, torch.maximum(lam, 1.0 - lam)
 
 
-def apply_mixup(x: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor):
-    """(lam x + (1 - lam) x[perm], lam y + (1 - lam) y[perm]), lam per row,
-    cast to each operand's dtype (the reference's arithmetic)."""
+def mix_pairs(x: torch.Tensor, y: torch.Tensor, x_partner: torch.Tensor,
+              y_partner: torch.Tensor, lam: torch.Tensor):
+    """(lam x + (1 - lam) x_partner, lam y + (1 - lam) y_partner), lam per
+    row, cast to each operand's dtype (the reference's arithmetic)."""
     b = x.shape[0]
     lam_x = lam.reshape((b,) + (1,) * (x.dim() - 1)).to(x.dtype)
     lam_y = lam.reshape(b, 1).to(y.dtype)
-    return (lam_x * x + (1 - lam_x) * x[perm], lam_y * y + (1 - lam_y) * y[perm])
+    return (lam_x * x + (1 - lam_x) * x_partner, lam_y * y + (1 - lam_y) * y_partner)
+
+
+def apply_mixup(x: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor):
+    """Each row mixed with its partner row ``perm`` (:func:`mix_pairs`)."""
+    return mix_pairs(x, y, x[perm], y[perm], lam)
 
 
 def mixup(x: torch.Tensor, y: torch.Tensor, generator: torch.Generator, alpha: float = 0.5):

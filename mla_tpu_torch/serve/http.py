@@ -566,9 +566,10 @@ def create_server(
     ``reload_fn`` (a zero-arg callable returning a new state_dict, or
     ``(state_dict, info_dict)``) enables POST /v1/reload: a weight swap
     while open streams keep their accumulators. ``device`` None is the
-    card (raises without one); only ``device="cpu"`` runs on the CPU. A
-    device mesh is not ported yet (ROADMAP.md queue A, item 9): ``mesh``
-    raises ``NotImplementedError``."""
+    card (raises without one); only ``device="cpu"`` runs on the CPU.
+    ``mesh`` shards the stream axis of every tick over the mesh's "data"
+    axis (``BatchedStreamingServer``'s mesh; its devices replace
+    ``device``)."""
     state = _TaggerState(cfg, state_dict, max_streams, chunk_patches,
                          transfer_dtype, mesh=mesh, batch_grace=batch_grace,
                          timeline_cap=timeline_cap, reload_fn=reload_fn, device=device)

@@ -258,24 +258,33 @@ class NativeTagServer:
         lib = self._lib
         wav_bytes = srv.S * self._cw_units * self._itemsize
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        sharded = srv._shards is not None
         while not self._closing:
             # sf_wait_gather writes every wire row (blank rows for inactive
             # streams) and the active bytes straight into the packed
             # layout. A new staging buffer per iteration (pinned on the
             # card): the caching host allocator hands its block out again
             # only after the copy from it has finished, so the next gather
-            # never writes into a buffer still in flight.
-            buf = srv.packed_buffer()
-            wav_p = buf.ctypes.data_as(u8p)
-            act_p = ctypes.cast(buf.ctypes.data + wav_bytes, u8p)
+            # never writes into a buffer still in flight. A sharded server
+            # takes the rows layout: the gather's flat buffer (the C
+            # interface's) is re-laid into a new one, one numpy copy.
+            flat = np.empty(srv.packed_nbytes, np.uint8) if sharded else srv.packed_buffer()
+            wav_p = flat.ctypes.data_as(u8p)
+            act_p = ctypes.cast(flat.ctypes.data + wav_bytes, u8p)
             n = lib.sf_wait_gather(self._h, wav_p, act_p, 200)
             if n < 0:
                 return
             if n == 0:
                 continue
-            active = buf[wav_bytes:].astype(bool)
+            active = flat[wav_bytes:].astype(bool)
+            buf = flat
+            if sharded:
+                buf = srv.packed_buffer()
+                rows, act_bytes = srv._packed_views(buf)
+                rows[:] = flat[:wav_bytes].reshape(rows.shape)
+                act_bytes[:] = flat[wav_bytes:]
             dev_buf = srv.put_packed(buf)
-            del buf
+            del buf, flat
             with self.dev:
                 srv.states, srv.tl = srv._packed_step(srv.states, srv.tl, dev_buf)
                 srv.dispatches += 1
@@ -466,7 +475,7 @@ class NativeTagServer:
                 raise RuntimeError(f"stream {sid} has no processed audio yet")
             model, states = self.srv.model, self.srv.states
         # finalize and fetch outside every lock, on a snapshot
-        return self.srv._finalize(model, states)[sid].float().cpu().numpy()
+        return self.srv.scores_from(model, states, sid)
 
     def reload_now(self) -> Dict:
         """In-process weight swap (the stdlib front's reload_now contract;

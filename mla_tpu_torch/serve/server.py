@@ -22,8 +22,18 @@ active bytes], unpacked on the device. ``timeline_cap`` keeps a per-stream
 localization ring on the device, written inside the step. Weights reload
 with ``prepare_reload`` / ``commit_reload`` while streams stay open. The
 device steps are functional: ``states, tl = step(states, tl, ...)`` returns
-new tensors, so a (states, tl) pair a reader holds is a snapshot. A device
-mesh is not ported yet (ROADMAP.md queue A, item 9).
+new tensors, so a (states, tl) pair a reader holds is a snapshot.
+
+With ``mesh`` (a single-process ``parallel.mesh.Mesh``) the stream axis
+shards in contiguous blocks of S / n over ``mesh[mesh_axis]``: shard k holds
+streams [k S/n, (k+1) S/n) on the first device of the axis' k-th row, with
+its own states, ring and ``active`` / ``n_valid`` slices, and a model
+replica shared by the shards on one device. Streams are independent, so
+the shards never communicate. ``states``, ``tl`` and ``model`` become lists
+with one entry per shard; a packed buffer takes the [S, packed_row_bytes]
+rows layout (each row its wire bytes and its active byte), whose shard
+blocks go up in one copy each. Read a stream through ``scores_from`` /
+``timeline_from``, which find its shard.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ class BatchedStreamingServer:
 
     def __init__(self, cfg: Config, state_dict: Mapping, max_streams: int = 8,
                  chunk_patches: int = 5, transfer_dtype: str = "float32",
-                 mesh=None, timeline_cap: int = 0, device=None):
+                 mesh=None, mesh_axis: str = "data", timeline_cap: int = 0, device=None):
         """``transfer_dtype`` is the wire the buffers hold and the upload
         carries: "float32", "int16" (PCM16, dequantized on the device),
         "uint8" (8-bit mu-law, expanded on the device), "adpcm4" or "adpcm2"
@@ -76,16 +86,27 @@ class BatchedStreamingServer:
         gate logits and segment probabilities per level on the device
         (``ops.attention_pool.TimelineState``, S * cap * levels * classes *
         8 bytes), written inside the step; ``timeline()`` reads it. 0 adds
-        no op to the step."""
+        no op to the step.
+
+        ``mesh`` shards the stream axis over ``mesh[mesh_axis]`` (see the
+        module docstring); max_streams must divide by the axis size. The
+        mesh's devices then replace ``device``."""
         if cfg.model.variant not in STREAMING_VARIANTS:
             raise ValueError(f"unknown streaming variant {cfg.model.variant!r}; "
                              f"pick from {STREAMING_VARIANTS}")
         if transfer_dtype not in _WIRES:
             raise ValueError(
                 f"transfer_dtype must be float32|int16|uint8|adpcm4|adpcm2, got {transfer_dtype!r}")
+        self._shards = None  # [(device, slice of streams)] on a mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md queue A, item 9)")
+            n = mesh.shape[mesh_axis]
+            if max_streams % n:
+                raise ValueError(
+                    f"max_streams {max_streams} not divisible by mesh {mesh_axis}={n}")
+            per = max_streams // n
+            self._shards = [(torch.device(d), slice(k * per, (k + 1) * per))
+                            for k, d in enumerate(mesh.axis_devices(mesh_axis))]
+            device = self._shards[0][0]
         if timeline_cap and timeline_cap < chunk_patches:
             # one chunk's ring slots must be distinct (masked scatter)
             raise ValueError(f"timeline_cap {timeline_cap} must be >= chunk_patches "
@@ -96,7 +117,7 @@ class BatchedStreamingServer:
         # silence in wire units: mu-law code 0 is full-scale -1.0, 128 is 0.0
         self._pad_value = 128 if self._buf_dtype == np.uint8 else 0
         self.cfg = cfg
-        self.model = _model_with_weights(cfg, state_dict, self.device)
+        self.model = self._replicas(state_dict)
         self.S = max_streams
         self.chunk_patches = chunk_patches
         self.chunk_samples = _samples_per_patches(cfg.frontend, chunk_patches)
@@ -127,12 +148,18 @@ class BatchedStreamingServer:
         self._fed = np.zeros(self.S, bool)
         self.dispatches = 0  # device steps run (ticks and flushes)
         n_levels, c = n_stream_levels(cfg.model), cfg.model.n_classes
-        self.states = [ap.init_stream_state((self.S, c), device=self.device)
-                       for _ in range(n_levels)]
         self.timeline_cap = int(timeline_cap)
-        self.tl = (ap.init_timeline_state(self.S, self.timeline_cap, n_levels, c,
-                                          device=self.device)
-                   if self.timeline_cap else None)
+
+        def fresh(rows, dev):  # (states, tl) of ``rows`` streams on ``dev``
+            return ([ap.init_stream_state((rows, c), device=dev) for _ in range(n_levels)],
+                    ap.init_timeline_state(rows, self.timeline_cap, n_levels, c, device=dev)
+                    if self.timeline_cap else None)
+
+        if self._shards is None:
+            self.states, self.tl = fresh(self.S, self.device)
+        else:
+            parts = [fresh(sl.stop - sl.start, d) for d, sl in self._shards]
+            self.states, self.tl = [p[0] for p in parts], [p[1] for p in parts]
         # the packed layout: [S * row_wire_bytes wire][S active bytes]
         units, _ = self._chunk_hop_units()
         self._itemsize = np.dtype(self._buf_dtype).itemsize
@@ -143,18 +170,40 @@ class BatchedStreamingServer:
         # one row of wire silence as bytes, for the inactive rows of a packed buffer
         self._blank_row_u8 = np.ascontiguousarray(self._blank_tile()[0]).view(np.uint8)
         # the packed tick's n_valid, made once: its one upload is the buffer
-        self._n_valid_chunk = torch.full((self.S,), chunk_patches, dtype=torch.int32,
-                                         device=self.device)
+        self._n_valid_chunk = (
+            torch.full((self.S,), chunk_patches, dtype=torch.int32, device=self.device)
+            if self._shards is None else
+            [torch.full((sl.stop - sl.start,), chunk_patches, dtype=torch.int32, device=d)
+             for d, sl in self._shards])
+
+    def _replicas(self, state_dict: Mapping):
+        """The model on the server's device; on a mesh a list with one
+        entry per shard, one replica per distinct device."""
+        if self._shards is None:
+            return _model_with_weights(self.cfg, state_dict, self.device)
+        by_device = {d: _model_with_weights(self.cfg, state_dict, d)
+                     for d in dict.fromkeys(d for d, _ in self._shards)}
+        return [by_device[d] for d, _ in self._shards]
+
+    def _locate(self, sid: int):
+        """(shard index, row in the shard) of a stream; (None, sid) unsharded."""
+        if self._shards is None:
+            return None, sid
+        per = self._shards[0][1].stop
+        return sid // per, sid % per
 
     @torch.inference_mode()
     def _step(self, states, tl, wav: torch.Tensor, active: torch.Tensor,
-              n_valid: torch.Tensor):
+              n_valid: torch.Tensor, model=None):
         """One device step from (states, tl) to new (states, tl). wav [S,
         chunk_samples] in the wire dtype; active [S] bool - fold only these
         rows; n_valid [S] int - real patches per row (a flush pads the tail;
         padded patches get gate logits of -inf, which every gate activation
         maps to 0, and keep their ring slots). On the adpcm wires wav is [S,
-        chunk_wire] uint8 wire bytes."""
+        chunk_wire] uint8 wire bytes. ``model`` (default the server's) runs
+        the step; on a mesh each shard's rows go through this with the
+        shard's replica."""
+        model = self.model if model is None else model
         if self._adpcm is not None:
             wav = adpcm_decode(wav, self.chunk_samples, self._adpcm["block"],
                                self._adpcm["bits"])
@@ -163,9 +212,9 @@ class BatchedStreamingServer:
         elif wav.dtype == torch.uint8:
             wav = mulaw_decode(wav)
         patches = fe.apply_frontend(wav, self.cfg.frontend)  # [S, P, 96, 64]
-        levels = self.model.segment_logits(patches)
+        levels = model.segment_logits(patches)
         p = patches.shape[1]
-        tmask = torch.arange(p, device=self.device)[None, :] < n_valid[:, None]  # [S, P]
+        tmask = torch.arange(p, device=patches.device)[None, :] < n_valid[:, None]  # [S, P]
         mask = active[:, None]
         new_states = []
         for st, (g, c) in zip(states, levels):
@@ -181,23 +230,42 @@ class BatchedStreamingServer:
             tl = ap.update_timeline_state(tl, g_stack, f_stack, active, n_valid)
         return new_states, tl
 
-    def _packed_step(self, states, tl, packed: torch.Tensor):
+    def _wire(self, raw: torch.Tensor) -> torch.Tensor:
+        """[rows, row_wire_bytes] uint8 -> [rows, units] in the wire dtype: a
+        multi-byte wire is reinterpreted little-endian, as numpy wrote it. A
+        block of the rows layout is strided: it is copied, contiguous."""
+        if self._itemsize == 1:
+            return raw.contiguous()
+        dt = torch.int16 if self._itemsize == 2 else torch.float32
+        return raw.reshape(-1).view(dt).reshape(raw.shape[0], -1)
+
+    def _packed_step(self, states, tl, packed):
         """The regular tick's step from one packed buffer on the device
         (``put_packed``'s result): states, tl -> new states, tl. A caller
         that drives it stores the result and marks the active streams fed,
-        as ``tick_packed`` does."""
-        # [S * row_wire_bytes] uint8 -> [S, units] in the wire dtype: a
-        # multi-byte wire is reinterpreted little-endian, as numpy wrote it
-        wav = packed[: self._wav_bytes].view(self.S, -1)
-        if self._itemsize > 1:
-            wav = wav.view(torch.int16 if self._itemsize == 2 else torch.float32)
-        active = packed[self._wav_bytes:] != 0
-        return self._step(states, tl, wav, active, self._n_valid_chunk)
+        as ``tick_packed`` does. On a mesh ``packed`` and the results are
+        lists with one entry per shard."""
+        if self._shards is None:
+            wav = self._wire(packed[: self._wav_bytes].view(self.S, -1))
+            active = packed[self._wav_bytes:] != 0
+            return self._step(states, tl, wav, active, self._n_valid_chunk)
+        out = [self._step(states[k], tl[k], self._wire(rows[:, :-1]), rows[:, -1] != 0,
+                          self._n_valid_chunk[k], self.model[k])
+               for k, rows in enumerate(packed)]
+        return [o[0] for o in out], [o[1] for o in out]
 
     def _dispatch(self, wav: np.ndarray, active: np.ndarray, n_valid: np.ndarray):
-        put = [torch.from_numpy(a).to(self.device, non_blocking=True)
-               for a in (wav, active, n_valid)]
-        self.states, self.tl = self._step(self.states, self.tl, *put)
+        if self._shards is None:
+            put = [torch.from_numpy(a).to(self.device, non_blocking=True)
+                   for a in (wav, active, n_valid)]
+            self.states, self.tl = self._step(self.states, self.tl, *put)
+        else:
+            out = []
+            for k, (dev, sl) in enumerate(self._shards):
+                put = [torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev, non_blocking=True)
+                       for a in (wav, active, n_valid)]
+                out.append(self._step(self.states[k], self.tl[k], *put, model=self.model[k]))
+            self.states, self.tl = [o[0] for o in out], [o[1] for o in out]
         self.dispatches += 1
 
     def warmup(self, packed: bool = False):
@@ -215,9 +283,11 @@ class BatchedStreamingServer:
             act_bytes[:] = 0
             self.states, self.tl = self._packed_step(self.states, self.tl,
                                                      self.put_packed(buf))
-        self._finalize(self.model, self.states)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for _, sl in self._shards or [(self.device, slice(0, self.S))]:
+            self.scores_from(self.model, self.states, sl.start)  # one finalize per shard
+        for dev in dict.fromkeys(d for d, _ in self._shards or [(self.device, None)]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # --- stream lifecycle ---
     def open(self) -> int:
@@ -238,18 +308,28 @@ class BatchedStreamingServer:
         if self._adpcm is not None:
             self._rem[sid] = np.zeros(0, np.int16)
 
+        k, row = self._locate(sid)
+
         def reset(t, value):  # a new tensor: snapshots of the old stay intact
             t = t.clone()
-            t[sid] = value
+            t[row] = value
             return t
 
-        self.states = [ap.StreamState(reset(st.num, 0.0), reset(st.den, 0.0),
-                                      reset(st.m, -torch.inf)) for st in self.states]
-        if self.tl is not None:
-            # count 0 hides the slot's old ring rows; new writes start at
-            # cursor 0 and replace them before they become readable
-            self.tl = self.tl._replace(cursor=reset(self.tl.cursor, 0),
-                                       count=reset(self.tl.count, 0))
+        def reset_all(states, tl):
+            states = [ap.StreamState(reset(st.num, 0.0), reset(st.den, 0.0),
+                                     reset(st.m, -torch.inf)) for st in states]
+            if tl is not None:
+                # count 0 hides the slot's old ring rows; new writes start at
+                # cursor 0 and replace them before they become readable
+                tl = tl._replace(cursor=reset(tl.cursor, 0), count=reset(tl.count, 0))
+            return states, tl
+
+        if k is None:
+            self.states, self.tl = reset_all(self.states, self.tl)
+        else:
+            states, tl = list(self.states), list(self.tl)
+            states[k], tl[k] = reset_all(states[k], tl[k])
+            self.states, self.tl = states, tl
         self._fed[sid] = False
 
     def _check(self, sid: int):
@@ -358,25 +438,36 @@ class BatchedStreamingServer:
         pinned tensor from PyTorch's caching host allocator, so
         ``put_packed`` copies it asynchronously and the block is reused only
         after that copy has finished; on the CPU it is plain memory. Pass
-        the buffer to ``put_packed`` as returned, once it is filled."""
+        the buffer to ``put_packed`` as returned, once it is filled. On a
+        mesh the buffer is [S, packed_row_bytes], the rows layout."""
+        shape = ((self.packed_nbytes,) if self._shards is None
+                 else (self.S, self.packed_row_bytes))
         if self.device.type == "cuda":
-            return torch.empty(self.packed_nbytes, dtype=torch.uint8, pin_memory=True).numpy()
-        return np.empty(self.packed_nbytes, np.uint8)
+            return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
+        return np.empty(shape, np.uint8)
 
-    def put_packed(self, buf: np.ndarray) -> torch.Tensor:
+    def put_packed(self, buf: np.ndarray):
         """The one host-to-device copy of a buffer from ``packed_buffer``
-        (on the CPU, no copy)."""
+        (on the CPU, no copy); on a mesh one copy per shard of its block of
+        rows (on the CPU too: a block's wire must start aligned), a list."""
         if self.device.type != "cuda":
-            return torch.from_numpy(buf)
-        pinned = buf.base
-        if not (isinstance(pinned, torch.Tensor) and pinned.is_pinned()
-                and pinned.data_ptr() == buf.ctypes.data and buf.size == self.packed_nbytes):
-            raise ValueError("put_packed takes a buffer from packed_buffer(), as returned")
-        return pinned.to(self.device, non_blocking=True)
+            t = torch.from_numpy(buf)
+        else:
+            t = buf.base
+            if not (isinstance(t, torch.Tensor) and t.is_pinned()
+                    and t.data_ptr() == buf.ctypes.data and buf.size == self.packed_nbytes):
+                raise ValueError("put_packed takes a buffer from packed_buffer(), as returned")
+        if self._shards is None:
+            return t.to(self.device, non_blocking=True)
+        if self.device.type != "cuda":
+            return [t[sl].clone() for _, sl in self._shards]
+        return [t[sl].to(d, non_blocking=True) for d, sl in self._shards]
 
     def _packed_views(self, out: np.ndarray):
         """(wire_rows [S, row_wire_bytes], active_bytes [S]) views into a
-        packed buffer."""
+        packed buffer of either layout."""
+        if out.ndim == 2:
+            return out[:, :-1], out[:, -1]
         return out[: self._wav_bytes].reshape(self.S, -1), out[self._wav_bytes:]
 
     def gather_ready_packed(self, out: np.ndarray):
@@ -474,7 +565,15 @@ class BatchedStreamingServer:
         self._check(sid)
         if not self._fed[sid]:
             raise RuntimeError(f"stream {sid} has no processed audio yet")
-        return self._finalize(self.model, self.states)[sid].float().cpu().numpy()
+        return self.scores_from(self.model, self.states, sid)
+
+    def scores_from(self, model, states, sid: int) -> np.ndarray:
+        """One stream's scores from a snapshot of (model, states), on the
+        host."""
+        k, row = self._locate(sid)
+        if k is not None:
+            model, states = model[k], states[k]
+        return self._finalize(model, states)[row].float().cpu().numpy()
 
     # --- weight reload ---
     def prepare_reload(self, state_dict: Mapping):
@@ -486,16 +585,18 @@ class BatchedStreamingServer:
         def layout(sd):
             return {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
 
-        if layout(state_dict) != layout(self.model.state_dict()):
+        serving = self.model if self._shards is None else self.model[0]
+        if layout(state_dict) != layout(serving.state_dict()):
             raise ValueError("reload_weights: the new state_dict does not match the serving "
                              "model (keys, shapes or dtypes); start a new server for a "
                              "different architecture")
-        return _model_with_weights(self.cfg, state_dict, self.device)
+        return self._replicas(state_dict)
 
     def commit_reload(self, staged) -> None:
         """Serve with a model staged by :meth:`prepare_reload`: one attribute
-        store. Open streams keep their accumulators and their ring; chunks
-        folded after it use the new weights."""
+        store (on a mesh every replica at once). Open streams keep their
+        accumulators and their ring; chunks folded after it use the new
+        weights."""
         self.model = staged
 
     def reload_weights(self, state_dict: Mapping) -> None:
@@ -516,7 +617,10 @@ class BatchedStreamingServer:
 
     def timeline_from(self, states, tl, sid: int):
         """The readout of ``timeline`` from a snapshot of (states, tl)."""
-        return ap.read_timeline(states, tl, sid, self._acts[0])
+        k, row = self._locate(sid)
+        if k is not None:
+            states, tl = states[k], tl[k]
+        return ap.read_timeline(states, tl, row, self._acts[0])
 
     @torch.inference_mode()
     def timeline_with_scores_from(self, model, states, tl, sid: int):
@@ -524,6 +628,9 @@ class BatchedStreamingServer:
         states, tl), ``model`` being the server's ``model`` when the
         snapshot was taken: the scores ride the timeline's one
         device-to-host copy."""
-        scores = self._finalize(model, states)[sid]
-        start, levels, scores = ap.read_timeline(states, tl, sid, self._acts[0], extra=scores)
+        k, row = self._locate(sid)
+        if k is not None:
+            model, states, tl = model[k], states[k], tl[k]
+        scores = self._finalize(model, states)[row]
+        start, levels, scores = ap.read_timeline(states, tl, row, self._acts[0], extra=scores)
         return scores, start, levels

@@ -155,7 +155,7 @@ class TickLoop:
             if not self.srv._fed[sid]:
                 raise RuntimeError(f"stream {sid} has no processed audio yet")
             model, states = self.srv.model, self.srv.states
-        return self.srv._finalize(model, states)[sid].float().cpu().numpy()
+        return self.srv.scores_from(model, states, sid)
 
     def reload_weights(self, state_dict) -> None:
         """Weight swap while streams stay open (``server.reload_weights``

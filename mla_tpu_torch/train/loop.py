@@ -1,5 +1,6 @@
-"""Train / eval loop (counterpart of ``mla_tpu/train/loop.py``), for one
-process on one device.
+"""Train / eval loop (counterpart of ``mla_tpu/train/loop.py``), on one
+device, or data parallel over a process group (one rank per process,
+``parallel/distributed.py``'s ``initialize`` first).
 
 Kept from the reference: the synthetic datasets; a training set staged once
 on the device in float32, int16, uint8 or adpcm4 wire form, with each batch gathered
@@ -13,8 +14,22 @@ TensorBoard event files; hdf5 packs, loaded whole or (``data.out_of_core``)
 read a batch at a time, an out-of-core set never staged or held on the
 device; ``auto_resume`` with the sampler or RNG state, or the stream's
 position; and graceful preemption by ``request_preemption`` or SIGTERM /
-SIGINT. Not ported yet, and raising ``NotImplementedError`` that names its
-ROADMAP.md item: model or data parallelism beyond the one card.
+SIGINT.
+
+Data parallel (``train.data_parallel`` -1 or the group's size): every rank
+builds the same weights from ``train.seed``, draws the same index stream
+and takes its ``local_batch_slice`` rows of each batch (the resident set is
+whole on every rank, as the reference's ``put_replicated`` has it; a
+streamed batch is read and encoded per rank; the stateless pipeline yields
+each rank's slice). The step is the global-batch step
+(``train.state.DataParallel``): global batch-norm moments, augmentations
+drawn for the global batch, gradients and loss averaged in one all-reduce.
+Eval forwards each rank's rows of every batch and sums the zero-padded
+scores over the ranks. Only the primary rank writes logs, scalars,
+TensorBoard and checkpoints; resume reads after a barrier; preemption is
+agreed by an all-reduce MAX of the flag at the log cadence. Not ported
+yet, and raising ``NotImplementedError`` that names its ROADMAP.md item:
+model (tensor) parallelism.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mla_tpu_torch._device import resolve_device
 from mla_tpu_torch.config import Config
@@ -38,8 +54,12 @@ from mla_tpu_torch.data.ooc import take_rows
 from mla_tpu_torch.data.sampler import BalancedSampler, SequentialSampler
 from mla_tpu_torch.data.synthetic import ArrayDataset, make_dataset
 from mla_tpu_torch.models.zoo import build_model
+from mla_tpu_torch.parallel import distributed
+from mla_tpu_torch.parallel import mesh as pmesh
+from mla_tpu_torch.parallel.distributed import gather_rows
 from mla_tpu_torch.train.checkpoint import CheckpointManager
 from mla_tpu_torch.train.state import (
+    DataParallel,
     TrainState,
     create_train_state,
     make_eval_step,
@@ -88,14 +108,31 @@ def _check_supported(cfg: Config) -> None:
     t, d = cfg.train, cfg.data
     if t.model_parallel != 1:
         raise NotImplementedError(
-            "train.model_parallel > 1 is not ported yet (ROADMAP.md queue A, item 9)")
-    if t.data_parallel not in (-1, 1):
-        raise NotImplementedError(
-            f"train.data_parallel={t.data_parallel}: the port trains on one card "
-            "(ROADMAP.md queue A, item 9)")
+            "train.model_parallel > 1 (tensor parallelism) is not ported yet "
+            "(ROADMAP.md queue A, item 9b)")
     if d.staging_dtype not in ("float32", "int16", "uint8", "adpcm4"):
         raise ValueError(f"staging_dtype must be float32|int16|uint8|adpcm4,"
                          f" got {d.staging_dtype!r}")
+
+
+def data_parallel(cfg: Config, device: torch.device) -> Optional[DataParallel]:
+    """This rank's part of data parallelism over the process group, or None
+    in a single process. Either way ``train.data_parallel`` /
+    ``model_parallel`` go through ``make_mesh`` first, so a size the world
+    cannot supply raises the reference's ``ValueError``; so does a batch the
+    data axis does not divide."""
+    t = cfg.train
+    in_group = dist.is_initialized()
+    mesh = pmesh.make_mesh(t.data_parallel, t.model_parallel,
+                           devices=None if in_group else [device], device=device)
+    n = mesh.shape[pmesh.DATA_AXIS]
+    if t.batch_size % n:
+        raise ValueError(f"batch_size {t.batch_size} not divisible by data-parallel {n}")
+    if not in_group:
+        return None
+    return DataParallel(group=mesh.group(pmesh.DATA_AXIS), size=n,
+                        rows=distributed.local_batch_slice(t.batch_size),
+                        global_batch=t.batch_size)
 
 
 def _encode(x: np.ndarray, stage: str) -> np.ndarray:
@@ -111,30 +148,41 @@ def _encode(x: np.ndarray, stage: str) -> np.ndarray:
 
 def eval_scores(cfg: Config, state: TrainState, ds: ArrayDataset, eval_step,
                 device: torch.device, x_device: Optional[torch.Tensor] = None,
-                counts: Optional[Dict[str, int]] = None) -> np.ndarray:
+                counts: Optional[Dict[str, int]] = None,
+                dp: Optional[DataParallel] = None) -> np.ndarray:
     """Forward the eval set in batches of train.batch_size -> scores [N, C]
     on the host. ``x_device``: the eval inputs already on the device, cut
     into batches there (the last window shifted back to stay in range, its
     overlap rows dropped). Otherwise each batch is uploaded, the last one
-    padded to the full batch by repeating its last row. ``counts``, if
-    given, has its "eval_batches" raised by one per forward batch."""
+    padded to the full batch by repeating its last row. With ``dp`` each
+    rank forwards its rows of every batch and the batch's scores are summed
+    over the ranks in a zeroed [batch, C] buffer, so every rank returns
+    them all. ``counts``, if given, has its "eval_batches" raised by one
+    per forward batch."""
     bs = max(cfg.train.batch_size, 1)
+    rows = slice(None) if dp is None else dp.rows
     if x_device is not None and x_device.shape[0] < bs:
         x_device = None  # too small to cut full batches from
+
+    def forward(x_local):
+        probs = eval_step(state, x_local)
+        if dp is not None:
+            probs = gather_rows(probs, rows, bs, dp.group)
+        return probs.cpu().numpy()
+
     outs = []
     for idx in SequentialSampler(len(ds.x), bs):
         if x_device is not None:
             start = min(int(idx[0]), x_device.shape[0] - bs)
             off = int(idx[0]) - start
-            probs = eval_step(state, x_device[start:start + bs]).cpu().numpy()
-            outs.append(probs[off:off + len(idx)])
+            outs.append(forward(x_device[start:start + bs][rows])[off:off + len(idx)])
         else:
             x = take_rows(ds, idx)
             pad = bs - len(idx)
             if pad:
                 x = np.concatenate([x, np.repeat(x[-1:], pad, 0)])
-            x_t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
-            outs.append(eval_step(state, x_t).cpu().numpy()[: len(idx)])
+            x_t = torch.from_numpy(np.ascontiguousarray(x[rows], np.float32)).to(device)
+            outs.append(forward(x_t)[: len(idx)])
         if counts is not None:
             counts["eval_batches"] += 1
     return np.concatenate(outs)
@@ -142,9 +190,10 @@ def eval_scores(cfg: Config, state: TrainState, ds: ArrayDataset, eval_step,
 
 def evaluate(cfg: Config, state: TrainState, ds: ArrayDataset, eval_step,
              device: torch.device, x_device: Optional[torch.Tensor] = None,
-             counts: Optional[Dict[str, int]] = None) -> Dict[str, float]:
+             counts: Optional[Dict[str, int]] = None,
+             dp: Optional[DataParallel] = None) -> Dict[str, float]:
     """:func:`eval_scores`, then the metrics on the host."""
-    return calculate_stats(eval_scores(cfg, state, ds, eval_step, device, x_device, counts),
+    return calculate_stats(eval_scores(cfg, state, ds, eval_step, device, x_device, counts, dp),
                            ds.y)
 
 
@@ -154,16 +203,23 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     unless device="cpu"); returns the final state and the loss / eval
     history. Weights are initialized from ``train.seed`` through a
     ``torch.Generator``. ``auto_resume`` restores the latest checkpoint
-    (parameters, Adam state, step, EMA, sampler position) and continues."""
+    (parameters, Adam state, step, EMA, sampler position) and continues.
+
+    In a process group each rank calls ``fit`` with the same ``cfg`` and
+    trains its part of every global batch (see the module docstring);
+    every rank returns the same state and history."""
     dev = resolve_device(device)
     _check_supported(cfg)
+    dp = data_parallel(cfg, dev)
+    primary = distributed.is_primary()
     workspace = workspace or cfg.workspace
     os.makedirs(workspace, exist_ok=True)
-    logger = create_logging(os.path.join(workspace, "logs"), cfg.name) if log else None
+    logger = (create_logging(os.path.join(workspace, "logs"), cfg.name)
+              if log and primary else None)
     writer = ScalarWriter(
         os.path.join(workspace, "scalars.csv"),
         tensorboard_dir=(os.path.join(workspace, "tensorboard", cfg.name)
-                         if cfg.train.tensorboard else None))
+                         if cfg.train.tensorboard else None)) if primary else None
 
     def say(msg):
         if logger:
@@ -182,7 +238,8 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     state = create_train_state(cfg, model)
     bs = cfg.train.batch_size
     clip_samples = int(train_ds.x.shape[1]) if input_kind == "waveform" else None
-    train_step = make_train_step(cfg, model, input_kind, clip_samples=clip_samples)
+    train_step = make_train_step(cfg, model, input_kind, clip_samples=clip_samples, dp=dp)
+    rows = slice(None) if dp is None else dp.rows
     eval_step = make_eval_step(cfg, model, input_kind)
 
     use_grain = cfg.data.pipeline == "grain"
@@ -216,9 +273,12 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
                              keep=cfg.train.keep_checkpoints)
     rng = np.random.default_rng(cfg.train.seed)
     result = FitResult(state=state)
-    say(f"config={cfg.name} device={dev} input={input_kind} batch={bs}")
+    say(f"config={cfg.name} device={dev} input={input_kind} batch={bs}"
+        + ("" if dp is None else f" data_parallel={dp.size}"))
 
     start_step = 0
+    if auto_resume and dp is not None:
+        dist.barrier(group=dp.group)  # no rank reads while another might still write
     if auto_resume and ckpt.latest_step() is not None:
         state, sampler_st = ckpt.restore(state)
         if sampler is not None and sampler_st:
@@ -235,14 +295,15 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
 
         # the stream is a pure function of (seed, position): resuming starts
         # it at batch index start_step
-        grain_it = make_train_iterator(train_ds, bs, cfg.train.seed, cfg.data.grain_workers,
-                                       start_index=start_step)
+        grain_it = make_train_iterator(
+            train_ds, bs, cfg.train.seed, cfg.data.grain_workers, start_index=start_step,
+            host_index=distributed.process_index(), host_count=distributed.process_count())
 
     last_saved = -1
 
     def save_ckpt(step: int):
         nonlocal last_saved
-        if step == last_saved:  # preempted right after a periodic save
+        if step == last_saved or not primary:  # saved already, or not the writing rank
             return
         last_saved = step
         if sampler is not None:
@@ -259,6 +320,18 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         for sig in (signal.SIGTERM, signal.SIGINT):
             prev_handlers[sig] = signal.signal(sig, _on_preempt_signal)
 
+    def preempt_agreed(step: int) -> bool:
+        if dp is None:
+            return _PREEMPTED.is_set()
+        # ranks may be signalled at different steps; acting on a local flag
+        # would split the collectives' order, so the ranks agree, at a
+        # cadence every rank keeps, on whether any rank was signalled
+        if step % cfg.train.log_every and step != cfg.train.num_steps:
+            return False
+        flag = torch.tensor([float(_PREEMPTED.is_set())], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=dp.group)
+        return bool(flag.item() > 0)
+
     t_last = time.perf_counter()
     clips_done = 0
     try:
@@ -270,10 +343,11 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
                 y = torch.from_numpy(np.asarray(by, np.float32)).to(dev)
             elif use_device_data:
                 idx = sampler.next_batch() if sampler else rng.integers(0, len(train_ds.x), bs)
-                idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
+                idx_t = torch.from_numpy(np.asarray(idx[rows], np.int64)).to(dev)
                 x, y = x_all.index_select(0, idx_t), y_all.index_select(0, idx_t)
             else:
                 idx = sampler.next_batch() if sampler else rng.integers(0, len(train_ds.x), bs)
+                idx = idx[rows]
                 bx = take_rows(train_ds, idx)
                 x = torch.from_numpy(_encode(bx, stage) if input_kind == "waveform"
                                      else np.asarray(bx)).to(dev)
@@ -288,22 +362,24 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
                 dt = time.perf_counter() - t_last
                 cps = clips_done / dt if dt > 0 else 0.0
                 result.history.append({"step": step_i + 1, "loss": loss_v, "clips_per_sec": cps})
-                writer.write(step_i + 1, {"loss": loss_v, "clips_per_sec": cps})
+                if writer:
+                    writer.write(step_i + 1, {"loss": loss_v, "clips_per_sec": cps})
                 say(f"step {step_i + 1} loss {loss_v:.4f} {cps:.1f} clips/s")
                 t_last = time.perf_counter()
                 clips_done = 0
             if (step_i + 1) % cfg.train.eval_every == 0 or step_i + 1 == cfg.train.num_steps:
                 stats = evaluate(cfg, state, eval_ds, eval_step, dev, x_device=eval_x_dev,
-                                 counts=result.counts)
+                                 counts=result.counts, dp=dp)
                 stats["step"] = step_i + 1
                 result.eval_stats.append(stats)
-                writer.write(step_i + 1, {k: v for k, v in stats.items() if k != "step"})
+                if writer:
+                    writer.write(step_i + 1, {k: v for k, v in stats.items() if k != "step"})
                 say(f"eval @ {step_i + 1}: " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
             if cfg.train.checkpoint_every > 0 and (
                     (step_i + 1) % cfg.train.checkpoint_every == 0
                     or step_i + 1 == cfg.train.num_steps):
                 save_ckpt(step_i + 1)
-            if _PREEMPTED.is_set():
+            if preempt_agreed(step_i + 1):
                 say(f"preemption requested: checkpointing at step {step_i + 1} and exiting")
                 save_ckpt(step_i + 1)
                 result.interrupted = True
@@ -316,7 +392,8 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         if grain_it is not None:
             grain_it.close()  # stops the loader's workers
         ckpt.wait()
-        writer.close()
+        if writer:
+            writer.close()
     result.state = state
     return result
 

@@ -20,18 +20,22 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mla_tpu_torch.config import Config
 from mla_tpu_torch.data.adpcm import DEFAULT_BLOCK
 from mla_tpu_torch.data.audio_io import mulaw_decode
+from mla_tpu_torch.models.heads import GlobalRows
+from mla_tpu_torch.models.trunk import global_statistics
 from mla_tpu_torch.models.zoo import AudioTagger
 from mla_tpu_torch.ops import augment
 from mla_tpu_torch.ops import frontend as fe
 from mla_tpu_torch.ops.adpcm import adpcm_decode
+from mla_tpu_torch.parallel.distributed import gather_rows
 
 _EPS = 1e-7
 ADAM_BETAS = (0.9, 0.999)
@@ -149,12 +153,33 @@ def augment_generator(seed: int, step: int, stream: int, device: torch.device) -
     return torch.Generator(device=device).manual_seed(mixed)
 
 
+@dataclass(frozen=True)
+class DataParallel:
+    """One rank's part of a data-parallel train step: ``size`` ranks in
+    ``group`` (None = the default group), this rank holding ``rows`` of a
+    ``global_batch``-row batch."""
+
+    group: Any
+    size: int
+    rows: slice
+    global_batch: int
+
+
 def make_train_step(
     cfg: Config, model: AudioTagger, input_kind: str, clip_samples: Optional[int] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
     """(state, x, y) -> (state, loss), updating ``state`` in place. x is a
     waveform [B, n] (float32 or the staged wire form) or a feature sequence
-    [B, T, D] per ``input_kind``; the loss stays on the device."""
+    [B, T, D] per ``input_kind``; the loss stays on the device.
+
+    With ``dp`` the step is one rank's part of the step at the global batch,
+    and every rank ends it with the same state: x and y are this rank's
+    rows; batch norm takes the global batch's moments (when more than one
+    rank); mixup, SpecAugment and dropout draw for the global batch and
+    take this rank's rows (mixup's partners come from an all-reduce of the
+    zero-padded global batch); the gradients and the loss are averaged over
+    the ranks in one all-reduce, so the returned loss is the global one."""
     t_cfg = cfg.train
     spec = t_cfg.spec_augment and input_kind in ("waveform", "patches")
     front_cfg = cfg.frontend
@@ -173,18 +198,37 @@ def make_train_step(
             x_in = x
         dev = x_in.device
         if t_cfg.mixup_alpha > 0:
-            x_in, y = augment.mixup(x_in, y, augment_generator(t_cfg.seed, state.step, 2, dev),
-                                    t_cfg.mixup_alpha)
+            gen = augment_generator(t_cfg.seed, state.step, 2, dev)
+            if dp is None:
+                x_in, y = augment.mixup(x_in, y, gen, t_cfg.mixup_alpha)
+            else:
+                xg = gather_rows(x_in, dp.rows, dp.global_batch, dp.group)
+                yg = gather_rows(y, dp.rows, dp.global_batch, dp.group)
+                perm, lam = augment.mixup_draws(dp.global_batch, gen, t_cfg.mixup_alpha)
+                partner = perm[dp.rows]
+                x_in, y = augment.mix_pairs(xg[dp.rows], yg[dp.rows], xg[partner],
+                                            yg[partner], lam[dp.rows])
         if spec:
-            x_in = augment.spec_augment(
-                x_in, augment_generator(t_cfg.seed, state.step, 1, dev),
+            gen = augment_generator(t_cfg.seed, state.step, 1, dev)
+            draws = augment.spec_augment_draws(
+                x_in.shape[0] if dp is None else dp.global_batch, *x_in.shape[-2:], gen,
                 time_mask_width=t_cfg.time_mask_width, freq_mask_width=t_cfg.freq_mask_width)
+            if dp is not None:
+                draws = augment.SpanDraws(*(d[dp.rows] for d in draws))
+            x_in = augment.apply_spec_augment(x_in, draws)
         gen = dropout_generator(t_cfg.seed, state.step, dev)
+        if dp is not None:
+            gen = GlobalRows(gen, dp.global_batch, dp.rows)
         model.train()
-        loss = bce_loss(model(x_in, gen), y)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with global_statistics(model, dp.group if dp is not None and dp.size > 1 else None):
+            # the backward too: a checkpointed trunk re-runs its forward there
+            loss = bce_loss(model(x_in, gen), y)
+            loss.backward()
+        if dp is not None:
+            loss = _average_over_ranks([p.grad for p in params if p.grad is not None],
+                                       loss, dp)
         if t_cfg.gradient_clip_norm > 0:
             clip_by_global_norm_([p.grad for p in params if p.grad is not None],
                                  t_cfg.gradient_clip_norm)
@@ -201,6 +245,22 @@ def make_train_step(
         return state, loss.detach()
 
     return step
+
+
+@torch.no_grad()
+def _average_over_ranks(grads: List[torch.Tensor], loss: torch.Tensor,
+                        dp: DataParallel) -> torch.Tensor:
+    """Replace each gradient by its mean over the ranks, in place, and
+    return the ranks' mean loss: one all-reduce of one flat buffer. Over
+    one rank the sum and the division by 1 are exact."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().float().reshape(1)])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=dp.group)
+    flat /= dp.size
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return flat[-1]
 
 
 def eval_params(cfg: Config, state: TrainState) -> Optional[Dict[str, torch.Tensor]]:

@@ -183,14 +183,18 @@ def test_checkpoint_manager_keeps_the_last_n(tmp_path):
         CheckpointManager(str(tmp_path / "empty")).restore(fresh)
 
 
-@pytest.mark.parametrize("override,what", [
-    ({"train.model_parallel": 2}, "ROADMAP.md queue A, item 9"),
-    ({"train.data_parallel": 2}, "one card"),
+@pytest.mark.parametrize("override,err,what", [
+    ({"train.model_parallel": 2}, NotImplementedError, "ROADMAP.md queue A, item 9b"),
+    # data parallelism is ported: without a process group the world is one
+    # device, and the reference's make_mesh error says so
+    ({"train.data_parallel": 2}, ValueError,
+     r"data_parallel\*model_parallel = 2\*1 exceeds 1 devices"),
 ])
-def test_unported_options_raise(tmp_path, override, what):
-    """The options still to port raise and name themselves."""
+def test_unported_options_raise(tmp_path, override, err, what):
+    """Tensor parallelism, still to port, raises and names its item; data
+    parallelism beyond the world raises the reference's error."""
     cfg = _wave_cfg(tmp_path, **override)
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(err, match=what):
         loop.fit(cfg, log=False, device="cpu")
 
 

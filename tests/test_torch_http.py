@@ -18,7 +18,9 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from mla_tpu.serve.http import create_server as jax_create_server  # noqa: E402
+from mla_tpu.serve.streaming import tag_clip as jax_tag_clip  # noqa: E402
 from mla_tpu_torch.data import adpcm, audio_io  # noqa: E402
+from mla_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mla_tpu_torch.serve.client import TagClient  # noqa: E402
 from mla_tpu_torch.serve.http import create_server  # noqa: E402
 from mla_tpu_torch.serve.streaming import _samples_per_patches  # noqa: E402
@@ -263,12 +265,34 @@ def test_unread_body_closes_keepalive(pair):
 
 def test_device_rule_and_mesh(pair):
     """Without device= and without a card, create_server raises rather than
-    serve on the CPU; a mesh raises NotImplementedError citing queue A item
-    9."""
-    _, cfg, _, _ = pair
-    sd = torch_state_dict(cfg.model, jax_weights(configs()[0].model, seed=21)[1])
+    serve on the CPU; with a 2-shard CPU mesh (``serve --shard_streams``) a
+    stream on the second shard is served the scores JAX's one-shot tag
+    gives the same audio, as tests/test_http_serve.py holds JAX's own."""
+    _, cfg, wav, _ = pair
+    jcfg = configs({"frontend.precision": "highest"})[0]
+    variables, flat = jax_weights(jcfg.model, seed=21)
+    sd = torch_state_dict(cfg.model, flat)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_server(cfg, sd, port=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        create_server(cfg, sd, port=0, mesh=object(), device="cpu")
+    srv = create_server(cfg, sd, port=0, max_streams=2, chunk_patches=3,
+                        transfer_dtype="float32", mesh=make_mesh(devices=["cpu", "cpu"]))
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    base = "http://%s:%d" % srv.server_address[:2]
+    try:
+        audio = wav[:_samples_per_patches(cfg.frontend, 3)]
+        sids = [http_call(base, "POST", "/v1/streams")[1]["sid"] for _ in range(2)]
+        assert sids == [0, 1]
+        assert http_call(base, "POST", "/v1/streams/1/audio", audio.tobytes())[1][
+            "advanced"] == 1
+        got = http_call(base, "GET", "/v1/streams/1/scores?top_k=4")[1]["top_k"]
+        want = jax_tag_clip(jcfg, variables, audio)
+        order = np.argsort(-want)[:4]
+        labels = srv.state.labels
+        assert [g[0] for g in got] == [labels[i] for i in order]
+        np.testing.assert_allclose([g[1] for g in got], want[order], rtol=1e-4, atol=1e-5)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    t.join(timeout=30)

@@ -18,8 +18,10 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from mla_tpu.serve import native_front as jax_native  # noqa: E402
+from mla_tpu.serve.streaming import tag_clip as jax_tag_clip  # noqa: E402
 from mla_tpu_torch.data import adpcm, audio_io  # noqa: E402
 from mla_tpu_torch.ops import _build  # noqa: E402
+from mla_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mla_tpu_torch.serve.client import TagClient  # noqa: E402
 from mla_tpu_torch.serve.native_front import create_native_server  # noqa: E402
 from mla_tpu_torch.serve.streaming import _samples_per_patches  # noqa: E402
@@ -243,9 +245,28 @@ def test_error_paths(served):
 
 
 def test_device_rule_and_mesh(setup):
-    _, tcfg, weights, _ = setup
+    """Without device= and without a card the native front raises; with a
+    2-shard CPU mesh (``serve --native --shard_streams``: the C++ gather's
+    flat buffer re-laid into the rows layout each tick) a stream on the
+    second shard is served the scores JAX's one-shot tag gives the same
+    audio, as tests/test_native_front.py holds JAX's own."""
+    jcfg, tcfg, weights, wav = setup
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_native_server(tcfg, weights["port"][0], port=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        create_native_server(tcfg, weights["port"][0], port=0, mesh=object(), device="cpu")
+    srv = create_native_server(tcfg, weights["port"][0], port=0, max_streams=2,
+                               chunk_patches=3, transfer_dtype="int16",
+                               mesh=make_mesh(devices=["cpu", "cpu"]))
+    base = "http://%s:%d" % srv.server_address
+    try:
+        audio = audio_io.pcm16_quantize(wav[:_samples_per_patches(tcfg.frontend, 3)])
+        assert [http_call(base, "POST", "/v1/streams")[1]["sid"] for _ in range(2)] == [0, 1]
+        r = http_call(base, "POST", "/v1/streams/1/audio", audio.tobytes(), "audio/L16")[1]
+        assert r["advanced"] == 1
+        got = http_call(base, "GET", "/v1/streams/1/scores?top_k=4")[1]["top_k"]
+        want = jax_tag_clip(jcfg, weights["jax"][0], audio.astype(np.float32) / 32768.0)
+        order = np.argsort(-want)[:4]
+        assert [g[0] for g in got] == [srv.labels[i] for i in order]
+        np.testing.assert_allclose([g[1] for g in got], want[order], **JAX_TOL)
+    finally:
+        srv.server_close()

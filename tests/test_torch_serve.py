@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from mla_tpu.serve.server import BatchedStreamingServer as JaxServer  # noqa: E402
 from mla_tpu_torch.data import adpcm, audio_io  # noqa: E402
 from mla_tpu_torch.ops import adpcm as adpcm_ops  # noqa: E402
+from mla_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mla_tpu_torch.serve.server import BatchedStreamingServer  # noqa: E402
 from mla_tpu_torch.serve.streaming import (  # noqa: E402
     StreamingTagger,
@@ -191,7 +192,8 @@ def test_server_bookkeeping(setup):
 
 @pytest.mark.parametrize("kwargs,err", [
     ({"timeline_cap": 3}, ValueError),  # below chunk_patches
-    ({"mesh": object()}, NotImplementedError),
+    # the reference's divisibility error: 6 streams over 4 shards
+    ({"max_streams": 6, "mesh": make_mesh(devices=["cpu"] * 4)}, ValueError),
     ({"transfer_dtype": "bfloat16"}, ValueError),
 ])
 def test_server_rejects_unported_options(setup, kwargs, err):

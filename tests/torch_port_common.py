@@ -146,3 +146,45 @@ def both(bases, method, path, body=None, ctype="application/octet-stream", heade
     want = http_call(bases[1], method, path, body, ctype, headers)
     assert_replies_match(got, want, tol or dict(rtol=1e-4, atol=1e-5))
     return got
+
+
+# --- multi-process runs: ranks of tests/torch_dp_worker.py over gloo ---
+
+RANK_TIMEOUT_S = 120  # each rank's limit: a hung collective fails the test
+
+
+def launch_ranks(job, tmp_path, n=2):
+    """Run ``job`` (a dict the worker's cases read) in ``n`` worker ranks
+    over a gloo group with a ``file://`` store under ``tmp_path`` (no ports,
+    so no bind race); returns each rank's {case: result}. A rank that fails
+    or outlives RANK_TIMEOUT_S fails the call, and every rank is killed."""
+    import os
+    import subprocess
+    import sys
+
+    import torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    job_path, store = tmp_path / "job.pt", tmp_path / "store"
+    torch.save(job, job_path)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK", "JAX_COORDINATOR_ADDRESS")}
+    env.update(PYTHONPATH=root, WORLD_SIZE=str(n), OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tests.torch_dp_worker", str(job_path), f"file://{store}",
+         str(tmp_path / f"rank{r}.pt")],
+        cwd=root, env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, log[-3000:]) for r, (p, log) in enumerate(zip(procs, logs))
+           if p.returncode != 0]
+    assert not bad, bad
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(n)]
