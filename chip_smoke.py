@@ -175,13 +175,29 @@ printing its last line:
      gradients against a one-ulp control; 1 step at the CPU tests' widths,
      gradients and parameters strictly) and audioset_full_dp as shipped (2 x
      128 against 256, losses within 1e-3, step time and idle share per rank).
+  11. tensor parallelism on the one card: the rule's sharded names on the
+     flagship and serving trees at model 2 (15 each) and the bytes a rank
+     holds; fit with train.model_parallel=2 on two gloo ranks against one
+     process (us8k as shipped, 3 steps and an eval, losses within 1e-4, one
+     mma launch per step and eval batch a rank; us8k f32 with TF32 off, one
+     step, gradients against the one-ulp control; audioset_full_dp at a
+     global batch of 128, losses within 1e-3, step ms, idle share, peak
+     memory and the collectives' host ms a rank) and on a (2, 2) grid of four
+     ranks (us8k f32, one step, against the control); the server over weights
+     sharded over [cuda:0] x (1, 2) and x (2, 2) (a tensor-parallel replica
+     per data row; int16 and adpcm4, tick() and the packed tick, ring 64)
+     against the unsharded server, f32 with TF32 off within 1e-6 and bf16
+     within 1e-3, one mma launch per data row and device step; a reload of
+     sharded weights keeping the layout; the ticks in turns and profiled;
+     entry.dryrun_multichip(8) on the card.
 Launch counts are set to 0 just before each path (probe, serving on each
 wire, the ring, packed and reload serving paths, the two fronts' soaks and the
 reload soak, each exported artifact's run, training, adpcm4-staged
 training, the flagship forward and train steps, the augmented fit, the SED
 harness, the parity harness, the TensorBoard fit, the streamed fit,
 phase 9's in-process eval, infer (one-shot, streamed, folder) and embed, and
-phase 10's sharded servers, context-parallel scoring and each rank's fits)
+phase 10's sharded servers, context-parallel scoring and each rank's fits,
+phase 11's fits and tensor-parallel servers)
 is driven and read just after. The script prints the card's line
 from nvidia-smi, one JSON line of per-kernel numbers, and last
 {"ok": true, "device": {...}}. The full record also goes to
@@ -1836,7 +1852,7 @@ def _dp_fit(name, preset, overrides, f32, ws, dp_timing: bool):
     from mla_tpu_torch._device import tf32_off
     from mla_tpu_torch.config import get_config
     from mla_tpu_torch.ops import fused_frontend as ff
-    from mla_tpu_torch.parallel import distributed
+    from mla_tpu_torch.parallel import distributed, tensor
     from mla_tpu_torch.train import loop
     from mla_tpu_torch.train.state import make_train_step
 
@@ -1853,9 +1869,12 @@ def _dp_fit(name, preset, overrides, f32, ws, dp_timing: bool):
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         params = os.path.join(ws, f"{name}.params.rank{rank}.pt")
         model, opt = res.state.model, res.state.optimizer
-        torch.save({"params": {k: v.cpu() for k, v in model.state_dict().items()},
-                    "grads": {n: (opt.state[p]["exp_avg"] / (1 - opt.defaults["betas"][0])).cpu()
-                              for n, p in model.named_parameters()} if f32 else {}}, params)
+        # whole tensors: a tensor-parallel rank gathers its shards over "model"
+        grads = tensor.gather_named(model, {
+            n: opt.state[p]["exp_avg"] / (1 - opt.defaults["betas"][0])
+            for n, p in model.named_parameters()}) if f32 else {}
+        torch.save({"params": {k: v.cpu() for k, v in tensor.full_state_dict(model).items()},
+                    "grads": {k: v.cpu() for k, v in grads.items()}}, params)
         rec["params"] = params
         rec["lr"] = cfg.train.learning_rate
         if dp_timing:
@@ -1885,14 +1904,46 @@ def _dp_fit(name, preset, overrides, f32, ws, dp_timing: bool):
             # idle share includes the time the card runs the other rank's work)
             rec["idle_share"] = None if busy is None else max(0.0, 1.0 - busy / rec["step_ms"])
             rec["top_ms"] = top[:8]
+            if tensor.layout_of(model) is not None:
+                rec["collectives"] = _collectives_per_step(lambda: step(state, x, y))
         del res, model, opt
     torch.cuda.empty_cache()
     return rec
 
 
+def _collectives_per_step(step_fn, reps: int = DP_STEP_REPS) -> dict:
+    """Every ``torch.distributed.all_reduce`` of ``reps`` calls of
+    ``step_fn`` (a train step) timed on the host clock, the card
+    synchronized before and after each (gloo stages CUDA tensors through
+    the host): calls and ms per step. The wrapper is removed after."""
+    import torch.distributed as dist
+
+    orig, acc = dist.all_reduce, {"calls": 0, "ms": 0.0, "mb": 0.0}
+
+    def timed(t, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(t, *a, **k)
+        torch.cuda.synchronize()
+        acc["ms"] += (time.perf_counter() - t0) * 1e3
+        acc["calls"] += 1
+        acc["mb"] += t.numel() * t.element_size() / 1e6
+        return out
+
+    dist.all_reduce = timed
+    try:
+        for _ in range(reps):
+            step_fn()
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = orig
+    return {k: v / reps for k, v in acc.items()}
+
+
 def _dp_worker(job_path):
-    """One rank of a phase-10 data-parallel launch: the group over gloo (two
-    ranks on one card) or NCCL, each run's fit, a JSON record per rank."""
+    """One rank of a phase-10 data-parallel or phase-11 tensor-parallel
+    launch: the group over gloo (ranks sharing one card) or NCCL, each
+    run's fit, a JSON record per rank."""
     sys.path.insert(0, ROOT)
     from mla_tpu_torch.parallel import distributed
 
@@ -1903,9 +1954,10 @@ def _dp_worker(job_path):
     rank = distributed.process_index()
     out = {"rank": rank, "world": distributed.process_count(),
            "device": str(torch.cuda.current_device())}
+    runs = _dp_runs(job["ws"]) if "tp" not in job else _tp_runs(job["tp"])
     try:
-        for name, *run in _dp_runs(job["ws"]):
-            out[name] = _dp_fit(name, *run, job["ws"], dp_timing=name == "flagship")
+        for name, *run in runs:
+            out[name] = _dp_fit(name, *run, job["ws"], dp_timing=name.endswith("flagship"))
         with open(f"{job['out']}.rank{rank}.json", "w") as fh:
             json.dump(out, fh)
     finally:
@@ -2313,6 +2365,282 @@ def _parallelism(scfg, state_dict, streams, schedule, zero_counts, check_launche
     rec["dp"] = dp
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10: {rec['phase_s']:.1f} s {tag}")
+    return rec, fe_paths, dec_paths
+
+
+# phase 11: tensor parallelism on the one card (the model axis' ranks, or
+# the single-process grid's entries, all name cuda:0)
+TP_SERVE_F32_TOL = 1e-6  # TP server against the unsharded one, f32, TF32 off
+TP_SERVE_BF16_BUDGET = 1e-3
+TP_US8K_LOSS_RTOL = 1e-4  # 11b, bf16 "highest", against one process
+TP_FLAGSHIP_LOSS_RTOL = 1e-3  # 11c, bf16, the loose budget
+TP_FLAGSHIP_BATCH = 128  # 11c's global batch (both ranks hold all of it on one card)
+MP = "train.model_parallel"
+
+
+def _tp_runs(world: int):
+    """What a phase-11 launch of ``world`` ranks runs: (name, config,
+    overrides, f32 with TF32 off); the single process runs the same without
+    the mesh overrides."""
+    base = {"train.eval_every": 1000, "train.checkpoint_every": 0, "train.log_every": 1}
+    f32 = {"model.compute_dtype": "float32", "train.num_steps": 1}
+    if world == 2:
+        return [("tp_us8k", "us8k_fused_frontend",
+                 {**base, "train.num_steps": 3, "train.eval_every": 3, MP: 2}, False),
+                ("tp_us8k_f32_step1", "us8k_fused_frontend", {**base, **f32, MP: 2}, True),
+                ("tp_flagship", "audioset_full_dp",
+                 {**DP_FLAGSHIP, "train.batch_size": TP_FLAGSHIP_BATCH, MP: 2}, False)]
+    return [("tp_grid_us8k_f32_step1", "us8k_fused_frontend",
+             {**base, **f32, "train.data_parallel": 2, MP: 2}, True)]
+
+
+def _single_overrides(overrides):
+    return {k: v for k, v in overrides.items() if k not in (MP, "train.data_parallel")}
+
+
+def _rule_bytes(cfg, mp):
+    """The rule's sharded flat names of ``cfg``'s model at ``mp`` and the
+    parameter and statistic bytes (f32) one rank of the model axis holds."""
+    from mla_tpu_torch.models.convert import flat_shapes
+    from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.parallel.mesh import make_mesh, param_shardings
+
+    shapes = flat_shapes(build_model(cfg.model, device="meta").state_dict())
+    mesh = make_mesh(1, mp, devices=["meta"] * mp)
+    specs = param_shardings(mesh, shapes, cfg.model.hidden_units)
+    whole = sum(4 * int(np.prod(s)) for s in shapes.values())
+    rank = sum(4 * int(np.prod(s)) // (mp if specs[k].spec else 1) for k, s in shapes.items())
+    return sorted(k for k, p in specs.items() if p.spec), whole, rank
+
+
+def _tensor_parallelism(scfg, state_dict, state_dict2, streams, schedule, zero_counts,
+                        check_launches, tag):
+    """Phase 11: the rule on the shipped trees (11a), tensor-parallel fits
+    on two gloo ranks (11b us8k, 11c the flagship) and on a (2, 2) grid of
+    four (11d) against one process, the server with weights sharded over
+    single-process grids (11e) and the dryrun (11f). Returns (record,
+    front-end launches by path, decode launches by path)."""
+    from mla_tpu_torch._device import tf32_off
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.entry import dryrun_multichip
+    from mla_tpu_torch.ops import adpcm as ad
+    from mla_tpu_torch.parallel import tensor
+    from mla_tpu_torch.parallel.mesh import make_mesh
+    from mla_tpu_torch.serve.server import BatchedStreamingServer
+
+    t_phase = time.perf_counter()
+    rec, fe_paths, dec_paths = {}, {}, {}
+    card = torch.device("cuda", 0)
+
+    # 11a. the rule on the flagship and serving trees at mp = 2
+    rule = {}
+    for preset in ("audioset_full_dp", "streaming_inference"):
+        names, whole, rank = _rule_bytes(get_config(preset), 2)
+        rule[preset] = {"sharded": names, "whole_mb": whole / 1e6, "rank_mb": rank / 1e6}
+        print(f"11a {preset} at model 2: {len(names)} sharded flat names {names}; "
+              f"parameters and statistics {whole / 1e6:.3f} MB whole, {rank / 1e6:.3f} MB "
+              "a rank")
+        if len(names) != 15:
+            raise RuntimeError(f"11a {preset}: {len(names)} sharded names")
+    rec["rule"] = rule
+
+    # 11b-11d. the fits: one process first, then the ranks
+    ws = os.path.join(ROOT, "build", "chip_smoke_tp")
+    shutil.rmtree(ws, ignore_errors=True)
+    os.makedirs(ws)
+    runs = {w: {r[0]: r[1:] for r in _tp_runs(w)} for w in (2, 4)}
+    single = {}
+    torch.cuda.empty_cache()
+    for name, (preset, over, f32) in {**runs[2], **runs[4]}.items():
+        key = (preset, json.dumps(_single_overrides(over), sort_keys=True), f32)
+        if key not in single:
+            single[key] = _dp_fit(name + "_single", preset, _single_overrides(over), f32, ws,
+                                  dp_timing=name.endswith("flagship"))
+    ulp = _ulp_control("us8k_fused_frontend", _single_overrides(runs[2]["tp_us8k_f32_step1"][1]))
+    ranks = {}
+    for world in (2, 4):
+        job = os.path.join(ws, f"job{world}.json")
+        with open(job, "w") as fh:
+            json.dump({"backend": "gloo", "ws": ws, "out": os.path.join(ws, f"out{world}"),
+                       "tp": world}, fh)
+        torch.cuda.empty_cache()
+        rc, out, secs = _launch(world, [os.path.join(ROOT, "chip_smoke.py"), "--dp-worker", job])
+        if rc != 0:
+            raise RuntimeError(f"11: the {world} gloo ranks failed ({rc}): {out}")
+        ranks[world] = []
+        for r in range(world):
+            with open(os.path.join(ws, f"out{world}.rank{r}.json")) as fh:
+                ranks[world].append(json.load(fh))
+        rec[f"launch{world}_s"] = secs
+    fits = {}
+    for world in (2, 4):
+        for name, (preset, over, f32) in runs[world].items():
+            rs = [r[name] for r in ranks[world]]
+            ref = single[(preset, json.dumps(_single_overrides(over), sort_keys=True), f32)]
+            loaded = [torch.load(r["params"]) for r in rs]
+            sref = torch.load(ref["params"])
+            same = all(torch.equal(loaded[0]["params"][k], o["params"][k])
+                       for o in loaded[1:] for k in loaded[0]["params"])
+            l0, lref = np.array(rs[0]["losses"]), np.array(ref["losses"])
+            lrel = float(np.max(np.abs(l0 - lref) / np.abs(lref)))
+            impl = get_config(preset, over).frontend.impl
+            want_fe = (rs[0]["counts"]["train_steps"] + rs[0]["counts"]["eval_batches"]
+                       if impl == "pallas" else 0)
+            entry = {"losses": rs[0]["losses"], "single_losses": ref["losses"],
+                     "loss_max_rel_diff": lrel, "ranks_equal": same,
+                     "launches": [r["launches"] for r in rs], "counts": rs[0]["counts"],
+                     "peak_gb": [r["peak_gb"] for r in rs], "single_peak_gb": ref["peak_gb"]}
+            print(f"11 {name}, {world} gloo ranks on cuda:0 against 1 process: losses "
+                  f"{rs[0]['losses']} against {ref['losses']} (max rel diff {lrel:.3e}); ranks "
+                  f"equal {same}; mma launches per rank {entry['launches']} (want {want_fe}, "
+                  f"front-end {impl!r}); peak GB per rank "
+                  f"{[round(g, 3) for g in entry['peak_gb']]}, single {ref['peak_gb']:.3f} {tag}")
+            if (not same or not np.isfinite(l0).all()
+                    or any(r["launches"] != {"mma": want_fe, "simt": 0} for r in rs)):
+                raise RuntimeError(f"11 {name}: {entry}")
+            if f32:
+                entry.update(_step1_check(loaded[0], sref, rs[0]["lr"]))
+                entry["ulp_control"] = _step1_check(ulp["scaled"], ulp["step"], ulp["lr"])
+                print(f"11 {name}: gradients against the single process, the largest |diff| "
+                      f"over its tolerance {entry['grad_diff_over_tol']:.4f} in "
+                      f"{entry['worst_tensor']}, decided parameters max |diff| "
+                      f"{entry['decided_param_max_abs_diff']:.3e}, all within two Adam steps "
+                      f"{entry['bounded']}; the one-ulp control "
+                      f"{entry['ulp_control']['grad_diff_over_tol']:.4f}")
+                if (not entry["bounded"] or abs(l0[0] - lref[0]) > 1e-5
+                        or entry["grad_diff_over_tol"] > max(
+                            1.0, 2 * entry["ulp_control"]["grad_diff_over_tol"])):
+                    raise RuntimeError(f"11 {name}: {entry}")
+            elif lrel > (TP_FLAGSHIP_LOSS_RTOL if name.endswith("flagship")
+                         else TP_US8K_LOSS_RTOL):
+                raise RuntimeError(f"11 {name}: {entry}")
+            if name.endswith("flagship"):
+                entry.update(step_ms=[r["step_ms"] for r in rs],
+                             idle_share=[r["idle_share"] for r in rs],
+                             busy_ms=[r["device_busy_ms"] for r in rs],
+                             collectives=[r["collectives"] for r in rs],
+                             single_step_ms=ref["step_ms"], single_idle_share=ref["idle_share"],
+                             rank0_top_ms=rs[0]["top_ms"])
+                print(f"11c flagship step (batch {TP_FLAGSHIP_BATCH}, model 2): ranks "
+                      f"{[round(r['step_ms'], 2) for r in rs]} ms (idle share "
+                      f"{[r['idle_share'] for r in rs]}, busy {entry['busy_ms']} ms), one "
+                      f"process {ref['step_ms']:.2f} ms (idle {ref['idle_share']}); collectives "
+                      f"a step per rank {entry['collectives']}; rank 0's top device ops "
+                      f"{rs[0]['top_ms'][:5]}. Two ranks share one card: this measures the "
+                      f"code path, not scaling {tag}")
+            for r, rr in enumerate(rs):
+                fe_paths[f"{name}_rank{r}"] = rr["launches"]
+            fits[name] = entry
+    rec["fits"] = fits
+
+    # 11e. the server with weights sharded over [cuda:0] x (1, 2) and x (2, 2)
+    f32cfg = dataclasses.replace(scfg, model=dataclasses.replace(scfg.model,
+                                                                 compute_dtype="float32"))
+    hidden = scfg.model.hidden_units
+    grids = {(1, 2): make_mesh(1, 2, devices=[card] * 2),
+             (2, 2): make_mesh(2, 2, devices=[card] * 4)}
+    serve, plain_scores = {}, {}
+    for wire in ("int16", "adpcm4"):
+        for packed in (False, True):
+            for label, cfg_ in (("f32", f32cfg), ("bf16", scfg)):
+                kw = dict(max_streams=8, chunk_patches=5, transfer_dtype=wire,
+                          timeline_cap=TIMELINE_CAP)
+                with tf32_off() if label == "f32" else contextlib.nullcontext():
+                    plain = BatchedStreamingServer(cfg_, state_dict, **kw)
+                    plain.warmup(packed=True)
+                    want = _drive(plain, streams, schedule, packed)
+                    del plain
+                    for grid, mesh in grids.items():
+                        key = f"{grid} {wire} {'packed' if packed else 'tick'} {label}"
+                        srv = BatchedStreamingServer(
+                            cfg_, tensor.place_sharded(state_dict, mesh, hidden), mesh=mesh,
+                            **kw)
+                        if srv._tp_rows is None:
+                            raise RuntimeError(f"11e {key}: the layout was not kept")
+                        srv.warmup(packed=True)
+                        zero_counts()
+                        d0 = srv.dispatches
+                        got = _drive(srv, streams, schedule, packed)
+                        torch.cuda.synchronize()
+                        steps = (srv.dispatches - d0) * grid[0]
+                        launches = check_launches(f"11e TP server {key} ({grid[0]} data rows)",
+                                                  steps, wire == "adpcm4")
+                        err = float(np.abs(got - want).max())
+                        ok = err <= (TP_SERVE_F32_TOL if label == "f32" else TP_SERVE_BF16_BUDGET)
+                        serve[key] = {"max_abs_err": err, "device_steps": srv.dispatches - d0,
+                                      **launches}
+                        print(f"11e TP server {key}: {srv.dispatches - d0} device steps x "
+                              f"{grid[0]} data rows; scores against the unsharded server max "
+                              f"|diff| {err:.3e} (budget "
+                              f"{TP_SERVE_F32_TOL if label == 'f32' else TP_SERVE_BF16_BUDGET})")
+                        if not ok or not np.isfinite(got).all():
+                            raise RuntimeError(f"11e {key}: scores against unsharded {err}")
+                        path = (f"serve_tp_{grid[0]}x{grid[1]}_{wire}_"
+                                f"{'packed' if packed else 'tick'}_{label}")
+                        fe_paths[path] = launches["frontend_launches"]
+                        if wire == "adpcm4":
+                            dec_paths[path] = launches["decode_launches"]
+                        del srv
+    # a reload with sharded weights keeps the layout and matches a fresh
+    # unsharded server on them (bf16, int16)
+    mesh = grids[(2, 2)]
+    kw = dict(max_streams=8, chunk_patches=5, transfer_dtype="int16")
+    srv = BatchedStreamingServer(scfg, tensor.place_sharded(state_dict, mesh, hidden), mesh=mesh,
+                                 **kw)
+    t0 = time.perf_counter()
+    staged = srv.prepare_reload(tensor.place_sharded(state_dict2, mesh, hidden))
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    srv.commit_reload(staged)
+    kept = all(tensor.layout_of(m) is not None for m in srv.model)
+    got = _drive(srv, streams, schedule)
+    fresh = BatchedStreamingServer(scfg, state_dict2, **kw)
+    want = _drive(fresh, streams, schedule)
+    err = float(np.abs(got - want).max())
+    serve["reload"] = {"layout_kept": kept, "max_abs_err": err, "prepare_ms": prep_ms}
+    print(f"11e reload of sharded weights on the (2, 2) TP server: layout kept {kept}; scores "
+          f"against a fresh unsharded server on them max |diff| {err:.3e}; prepare_reload "
+          f"{prep_ms:.2f} ms {tag}")
+    if not kept or err > TP_SERVE_BF16_BUDGET:
+        raise RuntimeError(f"11e reload: {serve['reload']}")
+    del srv, fresh
+    # the tick on the host clock in turns, and profiled (int16, ring off)
+    tick_srv = {}
+    for label, mesh_ in (("unsharded", None), ("tp 1x2", grids[(1, 2)]),
+                         ("tp 2x2", grids[(2, 2)])):
+        sd = state_dict if mesh_ is None else tensor.place_sharded(state_dict, mesh_, hidden)
+        s = BatchedStreamingServer(scfg, sd, mesh=mesh_, **kw)
+        s.warmup(packed=True)
+        audio = (0.1 * np.random.default_rng(SEED).standard_normal(
+            s.chunk_samples + (2 * (REPS + 3 + 10 + 1) + 2) * s.hop_samples)).astype(np.float32)
+        for _ in range(8):
+            s.feed(s.open(), audio)
+        tick_srv[label] = s
+    fns = {k: s.tick for k, s in tick_srv.items()}
+    med, _ = _in_turns(fns)
+    ticks = {"ms": med}
+    for k, fn in fns.items():
+        ticks[f"{k} profile"] = _report_profile(f"11e {k} tick", 10, med[k], _profile(fn, 10),
+                                                tag)
+    print("11e ticks, int16, 8 streams x 5 patches, host clock in turns: " + "; ".join(
+        f"{k} {med[k]:.4f} ms (busy {ticks[k + ' profile']['device_busy_ms']}, idle "
+        f"{ticks[k + ' profile']['idle_share']})" for k in fns) + f" {tag}")
+    del tick_srv
+    rec["serve"], rec["ticks"] = serve, ticks
+
+    # 11f. the dryrun's twin on the card (its adpcm4 ticks decode on the
+    # card; its tiny flagship takes the torch-ops front-end)
+    zero_counts()
+    dry = dryrun_multichip(8)
+    torch.cuda.synchronize()
+    dec_paths["dryrun_multichip"] = dict(ad.LAUNCHES_BY_VARIANT)
+    rec["dryrun"] = {"mesh": list(dry["mesh"]), "loss": dry["loss"],
+                     "one_process_loss": dry["one_process_loss"],
+                     "tensor_parallel_server": dry["tensor_parallel_server"]}
+    if dry["mesh"] != (4, 2) or not dry["tensor_parallel_server"]:
+        raise RuntimeError(f"11f: {rec['dryrun']}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 11: {rec['phase_s']:.1f} s {tag}")
     return rec, fe_paths, dec_paths
 
 
@@ -3395,8 +3723,15 @@ def main() -> int:
     phase10, phase10_fe, phase10_dec = _parallelism(scfg, state_dict, streams, schedule,
                                                     zero_counts, check_launches, tag)
     record["phase10"] = phase10
+
+    # 11. tensor parallelism on the one card: the rule, fits over the model
+    # axis on gloo ranks, the server over TP-sharded weights, the dryrun
+    phase11, phase11_fe, phase11_dec = _tensor_parallelism(
+        scfg, state_dict, state_dict2, streams, schedule, zero_counts, check_launches, tag)
+    record["phase11"] = phase11
     dec_by_path.update(phase8_dec)
     dec_by_path.update(phase10_dec)
+    dec_by_path.update(phase11_dec)
     dec_launches_by_variant = {v: sum(p[v] for p in dec_by_path.values())
                                for v in DECODE_VARIANTS}
 
@@ -3408,7 +3743,7 @@ def main() -> int:
                   **{p: r["frontend_launches"] for p, r in new_paths.items()},
                   "train_adpcm4": a_fe, **leftover_fe, "flagship_forward": fwd_launches,
                   "flagship_train": flagship["pallas"]["frontend_launches"], **phase8_fe,
-                  **phase9_fe, **phase10_fe}
+                  **phase9_fe, **phase10_fe, **phase11_fe}
     kernels = [{
         "name": "fused_log_mel_patches",
         "variant": "mma",

@@ -221,7 +221,8 @@ def cmd_eval(args):
 
 def _eval(args, primary: bool):
     """The eval verb's work; in a process group every rank forwards its
-    rows of each batch and only the primary writes and prints."""
+    rows of each batch (with train.model_parallel > 1 over its shards of
+    the checkpoint) and only the primary writes and prints."""
     from mla_tpu_torch._device import resolve_device
     from mla_tpu_torch.data.labels import labels_for
     from mla_tpu_torch.data.synthetic import make_dataset
@@ -232,13 +233,15 @@ def _eval(args, primary: bool):
     cfg = _load_cfg(args)
     dev = resolve_device(args.device)
     dp = data_parallel(cfg, dev)
-    state, _ = resume(cfg, args.workspace, device=dev)
+    state, _ = resume(cfg, args.workspace, device=dev, dp=dp)
     kind = _input_kind(cfg)
     eval_ds = make_dataset(cfg.data, cfg.model.n_classes, "eval", kind, cfg.frontend)
     # one pass, each batch uploaded and the last padded by repeating its
     # last row: the scores feed the stats and the per-class outputs alike
     scores = eval_scores(cfg, state, eval_ds, make_eval_step(cfg, state.model, kind), dev,
                          dp=dp)
+    # the whole weights (tensor parallel: gathered, every rank joining)
+    variables = variables_from_state(state, eval_params(cfg, state)) if args.events else None
     if not primary:
         return
     stats = calculate_stats(scores, eval_ds.y)
@@ -265,7 +268,6 @@ def _eval(args, primary: bool):
         # boundaries, DCASE segment-based
         from mla_tpu_torch.train.sed_eval import evaluate_sed, sweep_sed_threshold
 
-        variables = variables_from_state(state, eval_params(cfg, state))
         sed = dict(n_clips=args.sed_clips, merge_gap_s=args.event_gap,
                    min_dur_s=args.event_min_dur, segment_s=args.segment_s, device=dev)
         stats["events"] = evaluate_sed(cfg, variables, threshold=_resolve_threshold(args, names),

@@ -9,9 +9,22 @@ One call per process, before the model is built:
 ``python -m torch.distributed.run --nproc_per_node N -m mla_tpu_torch
 train ...`` sets the environment ``initialize`` reads. Without one it is a
 no-op, so the same entry point serves one process and many. Besides the
-group it holds the two helpers every data-parallel path shares: the
-reference's ``is_primary`` and ``local_batch_slice``, and an all-reduce
-that autograd can pass through.
+group it holds the helpers every parallel path shares: the reference's
+``is_primary`` and ``local_batch_slice`` (by the rank's data coordinate
+when a "model" axis is ``model_parallel`` ranks wide: the ranks of one
+model group hold the same rows), an all-reduce that autograd can pass
+through, and the model axis' four conjugate pairs, each a
+``torch.autograd.Function`` whose backward is its forward's transpose:
+
+  copy_to_model      identity           | all-reduce
+  reduce_from_model  all-reduce         | identity
+  scatter_to_model   this rank's slice  | all-gather
+  gather_from_model  all-gather         | this rank's slice
+
+Every one travels as an f32 ``all_reduce`` (an all-gather is the sum of
+zero-padded slices, which is exact), the one collective gloo carries for
+CUDA tensors too, so two ranks sharing one card (gloo; NCCL refuses) run
+them; partial sums are taken in f32 and cast back to the input's dtype.
 """
 
 from __future__ import annotations
@@ -105,13 +118,17 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
-def local_batch_slice(global_batch: int) -> slice:
-    """This process's contiguous slice of a global batch."""
-    n = process_count()
+def local_batch_slice(global_batch: int, model_parallel: int = 1) -> slice:
+    """This rank's contiguous slice of a global batch. The ranks form a
+    [data, model_parallel] grid, "model" innermost: the data axis splits
+    the batch, and the ranks of one model group take the same rows."""
+    if process_count() % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} must divide "
+                         f"{process_count()} processes")
+    i, n = process_index() // model_parallel, process_count() // model_parallel
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
     per = global_batch // n
-    i = process_index()
     return slice(i * per, (i + 1) * per)
 
 
@@ -149,3 +166,95 @@ def gather_rows(local: torch.Tensor, rows: slice, global_rows: int, group=None) 
     buf[rows] = local
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf
+
+
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The f32 sum of ``x`` over ``group``, cast back to ``x``'s dtype."""
+    out = x.float().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.to(x.dtype)
+
+
+def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, k = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    return x.narrow(dim, k * (x.shape[dim] // n), x.shape[dim] // n).contiguous()
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order (no autograd):
+    zero-padded slices summed in f32, cast back to ``x``'s dtype."""
+    n, k = dist.get_world_size(group), dist.get_rank(group)
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    shape[dim] *= n
+    buf = x.new_zeros(shape, dtype=torch.float32)
+    buf.narrow(dim, k * x.shape[dim], x.shape[dim]).copy_(x)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_f32(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad, ctx.dim, ctx.group), None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice(grad, ctx.dim, ctx.group), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the backward sums the ranks' gradients (a
+    replicated input to a layer whose ranks each see part of its use)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's partial ``x``; identity backward."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim``; the backward all-gathers."""
+    return _ScatterToModel.apply(x, dim, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order; the backward
+    takes this rank's slice."""
+    return _GatherFromModel.apply(x, dim, group)

@@ -1,6 +1,5 @@
-"""The ("data", "model") device mesh and batch placement (counterpart of
-``mla_tpu/parallel/mesh.py`` lines 1-96; the tensor-parallel rule, lines
-99-139, waits for ROADMAP.md queue A, item 9b).
+"""The ("data", "model") device mesh, the placements and the tensor-parallel
+rule (counterpart of ``mla_tpu/parallel/mesh.py``).
 
 PyTorch has no single-controller sharded array, so the port's mesh is a
 small object in one of two forms:
@@ -12,16 +11,24 @@ small object in one of two forms:
   shards, as the tests' CPU runs hold eight. ``shard_batch`` splits a batch
   into a list of per-shard pieces, one per data row, each on the row's
   first device.
-- **A process group** (data-parallel training): the data axis spans the
-  ranks; ``devices`` holds rank numbers, ``local_device`` this rank's card,
-  and ``device_mesh`` the ``init_device_mesh`` over the group, whose
+- **A process group** (training): the mesh spans the ranks, "model"
+  innermost as in the reference, so rank r sits at (r // model, r % model);
+  ``devices`` holds rank numbers, ``local_device`` this rank's card, and
+  ``device_mesh`` the ``init_device_mesh`` over the group, whose
   ``group(axis)`` carries the axis' collectives. ``put_local_batch`` keeps
   this rank's rows on its device.
+
+A placement (``Placement``) is a mesh and a spec, a tuple naming for each
+tensor dimension the mesh axis it is split over (None: whole), as JAX's
+``NamedSharding(mesh, PartitionSpec(...))``; the empty spec is replicated.
+``param_shardings`` applies the reference's tensor-parallel rule to flat
+weight names and flax-layout shapes (``models/convert.py``'s);
+``parallel/tensor.py`` carries it out on a model.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +63,11 @@ class Mesh:
         if self.device_mesh is None:
             raise ValueError("a single-process mesh has no process group")
         return self.device_mesh.get_group(axis)
+
+    def coordinate(self, rank: int) -> Tuple[int, int]:
+        """(data, model) index of ``rank`` on a process-group mesh ("model"
+        innermost)."""
+        return divmod(rank, self.shape[MODEL_AXIS])
 
     def axis_devices(self, axis: str = DATA_AXIS) -> list:
         """One device per index of ``axis``: the first device of each of its
@@ -98,6 +110,85 @@ def make_mesh(data_parallel: int = -1, model_parallel: int = 1,
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dmesh = init_device_mesh(kind, (dp, model_parallel), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
     return Mesh(arr, local_device=local, device_mesh=dmesh)
+
+
+class Placement:
+    """A tensor's placement: ``mesh`` and ``spec``, one axis name (or None)
+    per split dimension; dimensions past the spec's length are whole."""
+
+    def __init__(self, mesh: Mesh, spec: Sequence[Optional[str]] = ()):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+
+def batch_sharding(mesh: Mesh, ndim: int = 1) -> Placement:
+    """Leading axis over "data", rest replicated."""
+    return Placement(mesh, (DATA_AXIS,) + (None,) * (ndim - 1))
+
+
+def replicated(mesh: Mesh) -> Placement:
+    return Placement(mesh, ())
+
+
+def _tp_spec_for(path: Tuple[str, ...], shape: Tuple[int, ...], hidden: int) -> tuple:
+    """The TP rule: shard the hidden width of the embedded-mapping FCs and
+    the attention projections over "model". ``shape`` is the flax layout.
+
+    - Dense kernels [in, hidden]   -> (None, "model")   (column parallel)
+    - Dense kernels [hidden, out]  -> ("model", None)   (row parallel)
+    - biases [hidden]              -> ("model",)
+    Everything else (convs, norms, small heads) replicates. A [hidden,
+    hidden] kernel is column parallel: the output width is tested first.
+    """
+    name = "/".join(str(p) for p in path)
+    if "kernel" in name and len(shape) == 2:
+        if shape[1] == hidden:
+            return (None, MODEL_AXIS)
+        if shape[0] == hidden:
+            return (MODEL_AXIS, None)
+    if "bias" in name and len(shape) == 1 and shape[0] == hidden:
+        return (MODEL_AXIS,)
+    return ()
+
+
+def tp_spec(path: Tuple[str, ...], shape: Tuple[int, ...], hidden: int, model: int) -> tuple:
+    """The rule's spec for a ``model``-wide axis: replicated when the axis is
+    1 wide, and when it cannot split a named dimension evenly (the
+    divisibility guard)."""
+    if model == 1:
+        return ()
+    spec = _tp_spec_for(path, shape, hidden)
+    if any(a is not None and shape[i] % model for i, a in enumerate(spec)):
+        return ()
+    return spec
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    """A leaf's shape: an array's or tensor's, or the leaf itself when it
+    is a tuple of ints (``models.convert.flat_shapes``' values)."""
+    if isinstance(leaf, tuple) and all(isinstance(d, (int, np.integer)) for d in leaf):
+        return tuple(int(d) for d in leaf)
+    return tuple(int(d) for d in (leaf.shape if hasattr(leaf, "shape") else np.shape(leaf)))
+
+
+def param_shardings(mesh: Mesh, params: Mapping, hidden_units: int) -> Any:
+    """The placement of every leaf of ``params`` under the TP rule, in the
+    same structure: a flat mapping ("params/block0/fc0/kernel" -> array,
+    tensor or flax-layout shape) or nested dicts, whose keys join with "/".
+    With model_parallel == 1 every placement is replicated."""
+    model = mesh.shape[MODEL_AXIS]
+
+    def walk(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            path = prefix + tuple(str(k).split("/"))
+            if isinstance(v, Mapping):
+                out[k] = walk(v, path)
+            else:
+                out[k] = Placement(mesh, tp_spec(path, _shape(v), hidden_units, model))
+        return out
+
+    return walk(params, ())
 
 
 def _map(fn, tree):

@@ -34,6 +34,17 @@ with one entry per shard; a packed buffer takes the [S, packed_row_bytes]
 rows layout (each row its wire bytes and its active byte), whose shard
 blocks go up in one copy each. Read a stream through ``scores_from`` /
 ``timeline_from``, which find its shard.
+
+Weights already sharded over the mesh (a ``parallel.tensor.ShardedStateDict``
+over this ``mesh``, from ``place_sharded``: tensor parallelism, the
+reference's variables placed by ``param_shardings``) keep that layout, as
+the reference keeps a placement on its mesh: each data row's replica is
+tensor parallel over that row's devices, built from the row's own shards.
+The front-end and the trunk run once per data row, on the row's first
+device; only the sharded layers split over the row. A plain ``state_dict``
+is replicated, one replica per distinct device, as without a model axis.
+A reload keeps the layout the server was built with, whichever form the
+new weights come in.
 """
 
 from __future__ import annotations
@@ -47,9 +58,12 @@ from mla_tpu_torch._device import resolve_device
 from mla_tpu_torch.config import Config
 from mla_tpu_torch.data import adpcm
 from mla_tpu_torch.data.audio_io import mulaw_decode, mulaw_encode, pcm16_quantize
+from mla_tpu_torch.models.zoo import build_model
 from mla_tpu_torch.ops import attention_pool as ap
 from mla_tpu_torch.ops import frontend as fe
 from mla_tpu_torch.ops.adpcm import adpcm_decode
+from mla_tpu_torch.parallel import tensor
+from mla_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from mla_tpu_torch.serve.streaming import (
     STREAMING_VARIANTS,
     _model_with_weights,
@@ -59,6 +73,16 @@ from mla_tpu_torch.serve.streaming import (
     stream_activations,
     stream_finalize_scores,
 )
+
+
+def _layout(state_dict: Mapping) -> dict:
+    """{key: (whole shape, dtype)} of a ``state_dict`` or a
+    ``ShardedStateDict``, batch norm's step counters aside."""
+    shapes = (state_dict.shapes if isinstance(state_dict, tensor.ShardedStateDict)
+              else {k: (tuple(v.shape), v.dtype) for k, v in state_dict.items()})
+    return {k: (tuple(s), dt) for k, (s, dt) in shapes.items()
+            if not k.endswith("num_batches_tracked")}
+
 
 _WIRES = {"float32": np.float32, "int16": np.int16, "uint8": np.uint8,
           "adpcm4": np.uint8, "adpcm2": np.uint8}
@@ -90,7 +114,9 @@ class BatchedStreamingServer:
 
         ``mesh`` shards the stream axis over ``mesh[mesh_axis]`` (see the
         module docstring); max_streams must divide by the axis size. The
-        mesh's devices then replace ``device``."""
+        mesh's devices then replace ``device``. ``state_dict`` is a plain
+        ``state_dict``, or a ``ShardedStateDict`` over ``mesh``: a
+        tensor-parallel replica per data row (see the module docstring)."""
         if cfg.model.variant not in STREAMING_VARIANTS:
             raise ValueError(f"unknown streaming variant {cfg.model.variant!r}; "
                              f"pick from {STREAMING_VARIANTS}")
@@ -107,6 +133,12 @@ class BatchedStreamingServer:
             self._shards = [(torch.device(d), slice(k * per, (k + 1) * per))
                             for k, d in enumerate(mesh.axis_devices(mesh_axis))]
             device = self._shards[0][0]
+        self._mesh, self._tp_rows = mesh, None
+        if (isinstance(state_dict, tensor.ShardedStateDict) and state_dict.mesh is mesh
+                and mesh is not None and mesh.shape[MODEL_AXIS] > 1):
+            if mesh_axis != DATA_AXIS:
+                raise ValueError("a tensor-parallel server shards its streams over 'data'")
+            self._tp_rows = [list(row) for row in mesh.devices]
         if timeline_cap and timeline_cap < chunk_patches:
             # one chunk's ring slots must be distinct (masked scatter)
             raise ValueError(f"timeline_cap {timeline_cap} must be >= chunk_patches "
@@ -117,6 +149,7 @@ class BatchedStreamingServer:
         # silence in wire units: mu-law code 0 is full-scale -1.0, 128 is 0.0
         self._pad_value = 128 if self._buf_dtype == np.uint8 else 0
         self.cfg = cfg
+        self._layout = _layout(state_dict)
         self.model = self._replicas(state_dict)
         self.S = max_streams
         self.chunk_patches = chunk_patches
@@ -178,12 +211,31 @@ class BatchedStreamingServer:
 
     def _replicas(self, state_dict: Mapping):
         """The model on the server's device; on a mesh a list with one
-        entry per shard, one replica per distinct device."""
+        entry per shard: one replica per distinct device, or, tensor
+        parallel, one per data row over the row's devices."""
+        if self._tp_rows is not None:
+            return [self._tp_replica(state_dict, d) for d in range(len(self._tp_rows))]
+        if isinstance(state_dict, tensor.ShardedStateDict):
+            state_dict = state_dict.full()
         if self._shards is None:
             return _model_with_weights(self.cfg, state_dict, self.device)
         by_device = {d: _model_with_weights(self.cfg, state_dict, d)
                      for d in dict.fromkeys(d for d, _ in self._shards)}
         return [by_device[d] for d, _ in self._shards]
+
+    def _tp_replica(self, state_dict: Mapping, d: int):
+        """Data row ``d``'s replica, tensor parallel over the row's devices
+        and loaded with the row's shards (whole weights are sharded over
+        the mesh first)."""
+        if not (isinstance(state_dict, tensor.ShardedStateDict) and state_dict.mesh is self._mesh):
+            state_dict = tensor.place_sharded(
+                state_dict.full() if isinstance(state_dict, tensor.ShardedStateDict)
+                else state_dict, self._mesh, self.cfg.model.hidden_units)
+        row = self._tp_rows[d]
+        model = build_model(self.cfg.model, device="cpu").to(row[0]).eval()
+        tensor.tensor_parallel(model, tensor.ModelAxis(devices=row), state_dict.hidden_units)
+        tensor.load_shards(model, state_dict.row(d))
+        return model
 
     def _locate(self, sid: int):
         """(shard index, row in the shard) of a stream; (None, sid) unsharded."""
@@ -578,15 +630,11 @@ class BatchedStreamingServer:
     # --- weight reload ---
     def prepare_reload(self, state_dict: Mapping):
         """Stage new weights for a swap: check keys, shapes and dtypes
-        against the serving model's ``state_dict`` (``ValueError`` on any
-        mismatch; a different architecture needs a new server), then build
-        a second model with them on the device. Returns the staged model
-        for :meth:`commit_reload`."""
-        def layout(sd):
-            return {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
-
-        serving = self.model if self._shards is None else self.model[0]
-        if layout(state_dict) != layout(serving.state_dict()):
+        against the serving weights' (``ValueError`` on any mismatch; a
+        different architecture needs a new server), then build a second
+        model with them on the device, in the server's layout. Returns the
+        staged model for :meth:`commit_reload`."""
+        if _layout(state_dict) != self._layout:
             raise ValueError("reload_weights: the new state_dict does not match the serving "
                              "model (keys, shapes or dtypes); start a new server for a "
                              "different architecture")

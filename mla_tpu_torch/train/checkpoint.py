@@ -4,6 +4,12 @@ Adam's state, step, EMA shadow), the sampler position and the config, one
 ``torch.save`` file per step, keep-last-N, written to a temporary name and
 renamed into place so a reader never sees half a file.
 
+A tensor-parallel state is saved whole, as the reference's checkpoints
+are: its shards, Adam's moments and the EMA shadow are gathered over the
+"model" axis (``train_state_payload``, a collective every rank joins before
+the primary writes) and indexed as the whole model's; restoring takes each
+rank's slices. So a checkpoint resumes at any ``train.model_parallel``.
+
 This does not read the JAX package's Orbax checkpoints, nor they these:
 weights cross between the packages through the flat ``.npz`` format
 (``models/convert.py``).
@@ -18,9 +24,21 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from mla_tpu_torch.parallel import tensor
 from mla_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^step_(\d{8})\.pt$")
+
+
+def train_state_payload(state: TrainState) -> Dict:
+    """The saved part of ``state``, whole: step, model ``state_dict``, Adam's
+    ``state_dict`` and the EMA shadow by the whole model's names. For a
+    tensor-parallel state on a process group a collective over "model"."""
+    model = state.model
+    return {"step": int(state.step), "model": tensor.full_state_dict(model),
+            "optimizer": tensor.full_optimizer_state(model, state.optimizer),
+            "ema": (None if state.ema_params is None
+                    else tensor.gather_named(model, state.ema_params))}
 
 
 class CheckpointManager:
@@ -44,12 +62,11 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: TrainState, sampler_state: Optional[Dict] = None,
-             config: Optional[Dict] = None):
+             config: Optional[Dict] = None, payload: Optional[Dict] = None):
+        """Write ``state`` at ``step``; ``payload``, when given, is its
+        :func:`train_state_payload`, gathered already (tensor parallel)."""
         payload = {
-            "step": int(state.step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "ema": state.ema_params,
+            **(payload if payload is not None else train_state_payload(state)),
             # JSON text, so the file loads with weights_only=True
             "sampler": None if sampler_state is None else json.dumps(sampler_state),
             "config": None if config is None else json.dumps(config),
@@ -71,11 +88,11 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         device = next(state.model.parameters()).device
         payload = torch.load(self._path(step), map_location=device, weights_only=True)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        tensor.load_full_state_dict(state.model, payload["model"])
+        tensor.load_full_optimizer_state(state.model, state.optimizer, payload["optimizer"])
         state.step = int(payload["step"])
         if payload["ema"] is not None:
-            state.ema_params = dict(payload["ema"])
+            state.ema_params = tensor.split_named(state.model, payload["ema"])
         sampler = payload["sampler"]
         return state, None if sampler is None else json.loads(sampler)
 

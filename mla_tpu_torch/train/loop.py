@@ -27,9 +27,20 @@ drawn for the global batch, gradients and loss averaged in one all-reduce.
 Eval forwards each rank's rows of every batch and sums the zero-padded
 scores over the ranks. Only the primary rank writes logs, scalars,
 TensorBoard and checkpoints; resume reads after a barrier; preemption is
-agreed by an all-reduce MAX of the flag at the log cadence. Not ported
-yet, and raising ``NotImplementedError`` that names its ROADMAP.md item:
-model (tensor) parallelism.
+agreed by an all-reduce MAX of the flag at the log cadence.
+
+Tensor parallel (``train.model_parallel`` > 1, in a process group whose
+ranks form a [data, model] grid, "model" innermost): every rank builds the
+whole model from ``train.seed`` and ``parallel.tensor.tensor_parallel``
+keeps its shards over the rank's "model" group; the ranks of one model
+group take the same rows (their data coordinate's), and the data axis is
+the data-parallel one above. Checkpoints hold whole arrays, gathered over
+"model" before the primary writes (``train/checkpoint.py``), so a run
+resumes at any ``model_parallel``. The reference refuses tensor
+parallelism on more than one process; the port's multi-card ``fit`` is
+one process per card, so its tensor parallelism is over the processes.
+In one process ``model_parallel`` > 1 raises ``make_mesh``'s
+``ValueError`` (one device), as the reference does on one device.
 """
 
 from __future__ import annotations
@@ -54,10 +65,10 @@ from mla_tpu_torch.data.ooc import take_rows
 from mla_tpu_torch.data.sampler import BalancedSampler, SequentialSampler
 from mla_tpu_torch.data.synthetic import ArrayDataset, make_dataset
 from mla_tpu_torch.models.zoo import build_model
-from mla_tpu_torch.parallel import distributed
+from mla_tpu_torch.parallel import distributed, tensor
 from mla_tpu_torch.parallel import mesh as pmesh
 from mla_tpu_torch.parallel.distributed import gather_rows
-from mla_tpu_torch.train.checkpoint import CheckpointManager
+from mla_tpu_torch.train.checkpoint import CheckpointManager, train_state_payload
 from mla_tpu_torch.train.state import (
     DataParallel,
     TrainState,
@@ -105,34 +116,46 @@ def _input_kind(ds: ArrayDataset, trunk: str) -> str:
 
 
 def _check_supported(cfg: Config) -> None:
-    t, d = cfg.train, cfg.data
-    if t.model_parallel != 1:
-        raise NotImplementedError(
-            "train.model_parallel > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP.md queue A, item 9b)")
+    d = cfg.data
     if d.staging_dtype not in ("float32", "int16", "uint8", "adpcm4"):
         raise ValueError(f"staging_dtype must be float32|int16|uint8|adpcm4,"
                          f" got {d.staging_dtype!r}")
 
 
 def data_parallel(cfg: Config, device: torch.device) -> Optional[DataParallel]:
-    """This rank's part of data parallelism over the process group, or None
+    """This rank's part of the process group's [data, model] mesh, or None
     in a single process. Either way ``train.data_parallel`` /
     ``model_parallel`` go through ``make_mesh`` first, so a size the world
     cannot supply raises the reference's ``ValueError``; so does a batch the
-    data axis does not divide."""
+    data axis does not divide. The rows and the data group follow the
+    rank's data coordinate; with ``model_parallel`` > 1 ``model`` is the
+    axis over the rank's "model" group."""
     t = cfg.train
     in_group = dist.is_initialized()
     mesh = pmesh.make_mesh(t.data_parallel, t.model_parallel,
                            devices=None if in_group else [device], device=device)
-    n = mesh.shape[pmesh.DATA_AXIS]
+    n, mp = mesh.shape[pmesh.DATA_AXIS], mesh.shape[pmesh.MODEL_AXIS]
     if t.batch_size % n:
         raise ValueError(f"batch_size {t.batch_size} not divisible by data-parallel {n}")
     if not in_group:
         return None
     return DataParallel(group=mesh.group(pmesh.DATA_AXIS), size=n,
-                        rows=distributed.local_batch_slice(t.batch_size),
-                        global_batch=t.batch_size)
+                        rows=distributed.local_batch_slice(t.batch_size, mp),
+                        global_batch=t.batch_size,
+                        index=mesh.coordinate(distributed.process_index())[0],
+                        model=(tensor.ModelAxis(group=mesh.group(pmesh.MODEL_AXIS))
+                               if mp > 1 else None))
+
+
+def build_parallel_model(cfg: Config, device: torch.device, dp: Optional[DataParallel],
+                         seed: Optional[int] = None):
+    """The model on ``device``, tensor parallel over ``dp.model`` when there
+    is one: every rank builds the whole model (``seed`` draws the same
+    weights on each) and keeps its shards."""
+    model = build_model(cfg.model, device=device, seed=seed)
+    if dp is not None and dp.model is not None:
+        model = tensor.tensor_parallel(model, dp.model, cfg.model.hidden_units)
+    return model
 
 
 def _encode(x: np.ndarray, stage: str) -> np.ndarray:
@@ -234,7 +257,8 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         raise ValueError("compressed staging_dtype needs waveform input "
                          "(features are not [-1,1] PCM)")
 
-    model = build_model(cfg.model, device=dev, seed=cfg.train.seed)
+    model = build_parallel_model(cfg, dev, dp, seed=cfg.train.seed)
+    tp = dp is not None and dp.model is not None
     state = create_train_state(cfg, model)
     bs = cfg.train.batch_size
     clip_samples = int(train_ds.x.shape[1]) if input_kind == "waveform" else None
@@ -274,11 +298,12 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     rng = np.random.default_rng(cfg.train.seed)
     result = FitResult(state=state)
     say(f"config={cfg.name} device={dev} input={input_kind} batch={bs}"
-        + ("" if dp is None else f" data_parallel={dp.size}"))
+        + ("" if dp is None else f" data_parallel={dp.size}")
+        + (f" model_parallel={dp.model.size}" if tp else ""))
 
     start_step = 0
     if auto_resume and dp is not None:
-        dist.barrier(group=dp.group)  # no rank reads while another might still write
+        dist.barrier()  # no rank reads while another might still write
     if auto_resume and ckpt.latest_step() is not None:
         state, sampler_st = ckpt.restore(state)
         if sampler is not None and sampler_st:
@@ -297,22 +322,26 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         # it at batch index start_step
         grain_it = make_train_iterator(
             train_ds, bs, cfg.train.seed, cfg.data.grain_workers, start_index=start_step,
-            host_index=distributed.process_index(), host_count=distributed.process_count())
+            host_index=0 if dp is None else dp.index, host_count=1 if dp is None else dp.size)
 
     last_saved = -1
 
     def save_ckpt(step: int):
         nonlocal last_saved
-        if step == last_saved or not primary:  # saved already, or not the writing rank
+        if step == last_saved:
             return
         last_saved = step
+        # tensor parallel: every rank joins the gathers of the whole arrays
+        full = train_state_payload(state) if tp else None
+        if not primary:  # not the writing rank
+            return
         if sampler is not None:
             samp_st = sampler.state_dict()
         elif use_grain:  # stateless: the position is the training step
             samp_st = {"pipeline": "grain", "seed": cfg.train.seed, "step": step}
         else:
             samp_st = {"pipeline": "random", "step": step, "rng_state": rng.bit_generator.state}
-        ckpt.save(step, state, samp_st, config=dataclasses.asdict(cfg))
+        ckpt.save(step, state, samp_st, config=dataclasses.asdict(cfg), payload=full)
 
     _PREEMPTED.clear()
     prev_handlers = {}
@@ -324,12 +353,12 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
         if dp is None:
             return _PREEMPTED.is_set()
         # ranks may be signalled at different steps; acting on a local flag
-        # would split the collectives' order, so the ranks agree, at a
-        # cadence every rank keeps, on whether any rank was signalled
+        # would split the collectives' order, so every rank of the group
+        # agrees, at a cadence every rank keeps, on whether any was signalled
         if step % cfg.train.log_every and step != cfg.train.num_steps:
             return False
         flag = torch.tensor([float(_PREEMPTED.is_set())], device=dev)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=dp.group)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
         return bool(flag.item() > 0)
 
     t_last = time.perf_counter()
@@ -398,13 +427,14 @@ def fit(cfg: Config, workspace: Optional[str] = None, log: bool = True,
     return result
 
 
-def resume(cfg: Config, workspace: Optional[str] = None,
-           device=None) -> Tuple[TrainState, Optional[Dict]]:
+def resume(cfg: Config, workspace: Optional[str] = None, device=None,
+           dp: Optional[DataParallel] = None) -> Tuple[TrainState, Optional[Dict]]:
     """Restore the latest checkpoint for ``cfg`` into a fresh train state on
-    ``device``. Unlike the reference it needs no sample batch
+    ``device`` (tensor parallel over ``dp.model`` when there is one: each
+    rank takes its slices). Unlike the reference it needs no sample batch
     (``resume_sample``): the model's shapes follow from the config."""
     workspace = workspace or cfg.workspace
-    model = build_model(cfg.model, device=device)
+    model = build_parallel_model(cfg, resolve_device(device), dp)
     mgr = CheckpointManager(os.path.join(workspace, "checkpoints", cfg.name))
     try:
         return mgr.restore(create_train_state(cfg, model))

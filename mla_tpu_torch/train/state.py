@@ -35,6 +35,7 @@ from mla_tpu_torch.models.zoo import AudioTagger
 from mla_tpu_torch.ops import augment
 from mla_tpu_torch.ops import frontend as fe
 from mla_tpu_torch.ops.adpcm import adpcm_decode
+from mla_tpu_torch.parallel import tensor
 from mla_tpu_torch.parallel.distributed import gather_rows
 
 _EPS = 1e-7
@@ -100,14 +101,28 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]) -> torch.o
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[List[bool]] = None, group=None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: scale every gradient by
     max_norm / ||g|| only when ||g|| >= max_norm. Returns ||g||. Decided on
-    the device, so the host does not wait for the norm."""
-    g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    the device, so the host does not wait for the norm.
+
+    Under tensor parallelism over a process ``group`` the gradients marked
+    ``sharded`` are this rank's shards: their squares are summed over the
+    group, and the replicated ones (equal on every rank) counted once."""
+    dev = grads[0].device
+    sq = [torch.sum(g.float() * g.float()).to(dev) for g in grads]
+    if sharded is not None and group is not None:
+        shard_sq = torch.stack([q for q, s in zip(sq, sharded) if s] or [sq[0] * 0]).sum()
+        dist.all_reduce(shard_sq, op=dist.ReduceOp.SUM, group=group)
+        total = torch.stack([q for q, s in zip(sq, sharded) if not s] or [sq[0] * 0]).sum()
+        g_norm = torch.sqrt(total + shard_sq)
+    else:
+        g_norm = torch.sqrt(torch.stack(sq).sum())
     keep = g_norm < max_norm
     for g in grads:
-        g.copy_(torch.where(keep, g, g / g_norm * max_norm))
+        k, n = keep.to(g.device), g_norm.to(g.device)
+        g.copy_(torch.where(k, g, g / n * max_norm))
     return g_norm
 
 
@@ -155,14 +170,18 @@ def augment_generator(seed: int, step: int, stream: int, device: torch.device) -
 
 @dataclass(frozen=True)
 class DataParallel:
-    """One rank's part of a data-parallel train step: ``size`` ranks in
-    ``group`` (None = the default group), this rank holding ``rows`` of a
-    ``global_batch``-row batch."""
+    """One rank's part of a parallel train step: ``size`` ranks on the data
+    axis in ``group`` (None = the default group), this rank at data index
+    ``index`` holding ``rows`` of a ``global_batch``-row batch, and, under
+    tensor parallelism, ``model`` (a ``parallel.tensor.ModelAxis`` over the
+    rank's "model" group; None without)."""
 
     group: Any
     size: int
     rows: slice
     global_batch: int
+    index: int = 0
+    model: Any = None
 
 
 def make_train_step(
@@ -179,7 +198,14 @@ def make_train_step(
     rank); mixup, SpecAugment and dropout draw for the global batch and
     take this rank's rows (mixup's partners come from an all-reduce of the
     zero-padded global batch); the gradients and the loss are averaged over
-    the ranks in one all-reduce, so the returned loss is the global one."""
+    the ranks in one all-reduce, so the returned loss is the global one.
+
+    A tensor-parallel ``model`` (``parallel.tensor.tensor_parallel``) needs
+    nothing more: its layers carry their own collectives, every rank of a
+    model group computes the same loss, the data axis averages the shards'
+    gradients (every rank the replicated ones, see ``_average_over_ranks``),
+    and the global-norm clip adds the shards' squares over the model group
+    (a process group) or over every shard (a device list)."""
     t_cfg = cfg.train
     spec = t_cfg.spec_augment and input_kind in ("waveform", "patches")
     front_cfg = cfg.frontend
@@ -188,6 +214,9 @@ def make_train_step(
     sched = lr_schedule(cfg)
     params = [p for p in model.parameters()]
     names = [n for n, _ in model.named_parameters()]
+    shard_ids = tensor.sharded_parameters(model)
+    lay = tensor.layout_of(model)
+    model_group = None if lay is None or lay.axis.local else lay.axis.group
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         if input_kind == "waveform":
@@ -227,11 +256,13 @@ def make_train_step(
             loss = bce_loss(model(x_in, gen), y)
             loss.backward()
         if dp is not None:
-            loss = _average_over_ranks([p.grad for p in params if p.grad is not None],
-                                       loss, dp)
+            with_grad = [p for p in params if p.grad is not None]
+            loss = _average_over_ranks([p.grad for p in with_grad], loss, dp,
+                                       [id(p) in shard_ids for p in with_grad])
         if t_cfg.gradient_clip_norm > 0:
-            clip_by_global_norm_([p.grad for p in params if p.grad is not None],
-                                 t_cfg.gradient_clip_norm)
+            with_grad = [p for p in params if p.grad is not None]
+            clip_by_global_norm_([p.grad for p in with_grad], t_cfg.gradient_clip_norm,
+                                 [id(p) in shard_ids for p in with_grad], model_group)
         for group in opt.param_groups:
             group["lr"] = sched(state.step)
         opt.step()
@@ -248,19 +279,41 @@ def make_train_step(
 
 
 @torch.no_grad()
-def _average_over_ranks(grads: List[torch.Tensor], loss: torch.Tensor,
-                        dp: DataParallel) -> torch.Tensor:
-    """Replace each gradient by its mean over the ranks, in place, and
-    return the ranks' mean loss: one all-reduce of one flat buffer. Over
-    one rank the sum and the division by 1 are exact."""
-    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().float().reshape(1)])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=dp.group)
-    flat /= dp.size
+def _mean_in_place(grads: List[torch.Tensor], extra: Optional[torch.Tensor], group,
+                   size: int) -> Optional[torch.Tensor]:
+    """Replace each gradient by its mean over ``group`` (``size`` ranks), in
+    place, through one all-reduce of one flat buffer; ``extra`` (the loss)
+    rides along and its mean is returned."""
+    tail = [] if extra is None else [extra.detach().float().reshape(1)]
+    if not grads and not tail:
+        return None
+    flat = torch.cat([g.reshape(-1) for g in grads] + tail)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= size
     off = 0
     for g in grads:
         g.copy_(flat[off:off + g.numel()].view_as(g))
         off += g.numel()
-    return flat[-1]
+    return flat[-1] if tail else None
+
+
+def _average_over_ranks(grads: List[torch.Tensor], loss: torch.Tensor, dp: DataParallel,
+                        sharded: List[bool]) -> torch.Tensor:
+    """Replace each gradient by its mean over the ranks, in place, and
+    return the ranks' mean loss: one all-reduce of one flat buffer over the
+    data axis. Over one rank the sum and the division by 1 are exact.
+
+    Tensor parallel, the ``sharded`` gradients are averaged over the data
+    axis (the ranks holding the same shard) and the replicated ones, with
+    the loss, over every rank: the model axis' copies are equal in exact
+    arithmetic, and the mean keeps them bit-equal where a kernel's backward
+    is not deterministic (cuDNN's), so the ranks' replicated weights never
+    drift apart."""
+    if dp.model is None:
+        return _mean_in_place(grads, loss, dp.group, dp.size)
+    _mean_in_place([g for g, s in zip(grads, sharded) if s], None, dp.group, dp.size)
+    return _mean_in_place([g for g, s in zip(grads, sharded) if not s], loss, None,
+                          dp.size * dp.model.size)
 
 
 def eval_params(cfg: Config, state: TrainState) -> Optional[Dict[str, torch.Tensor]]:
@@ -272,14 +325,24 @@ def eval_params(cfg: Config, state: TrainState) -> Optional[Dict[str, torch.Tens
     return None
 
 
-def variables_from_state(state: TrainState, params: Optional[Dict[str, torch.Tensor]] = None
-                         ) -> Dict[str, torch.Tensor]:
-    """The model's ``state_dict`` (parameters and batch-norm statistics) with
-    ``params`` (e.g. the EMA shadow) in place of the online parameters."""
+def _local_variables(state: TrainState, params: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """This process's ``state_dict`` with ``params`` (by this process's
+    parameter names) in place of the online parameters."""
     variables = dict(state.model.state_dict())
     if params is not None:
         variables.update(params)
     return variables
+
+
+def variables_from_state(state: TrainState, params: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The whole model's ``state_dict`` (parameters and batch-norm
+    statistics) with ``params`` (e.g. the EMA shadow) in place of the online
+    parameters. A tensor-parallel model's shards are gathered (on a process
+    group a collective every rank of the model axis joins), so the caller
+    never sees them."""
+    return tensor.gather_named(state.model, _local_variables(state, params))
 
 
 def make_eval_step(cfg: Config, model: AudioTagger, input_kind: str):
@@ -291,7 +354,7 @@ def make_eval_step(cfg: Config, model: AudioTagger, input_kind: str):
         if input_kind == "waveform":
             x = fe.apply_frontend(x, cfg.frontend)
         model.eval()
-        variables = variables_from_state(state, eval_params(cfg, state))
+        variables = _local_variables(state, eval_params(cfg, state))
         return torch.func.functional_call(model, variables, (x,)).float()
 
     return step

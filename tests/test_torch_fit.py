@@ -184,15 +184,15 @@ def test_checkpoint_manager_keeps_the_last_n(tmp_path):
 
 
 @pytest.mark.parametrize("override,err,what", [
-    ({"train.model_parallel": 2}, NotImplementedError, "ROADMAP.md queue A, item 9b"),
-    # data parallelism is ported: without a process group the world is one
-    # device, and the reference's make_mesh error says so
+    # data and tensor parallelism are ported: without a process group the
+    # world is one device, and the reference's make_mesh errors say so
+    ({"train.model_parallel": 2}, ValueError, "model_parallel=2 must divide device count 1"),
     ({"train.data_parallel": 2}, ValueError,
      r"data_parallel\*model_parallel = 2\*1 exceeds 1 devices"),
 ])
 def test_unported_options_raise(tmp_path, override, err, what):
-    """Tensor parallelism, still to port, raises and names its item; data
-    parallelism beyond the world raises the reference's error."""
+    """Tensor and data parallelism beyond the world (one device in a single
+    process) raise the reference's ``make_mesh`` errors."""
     cfg = _wave_cfg(tmp_path, **override)
     with pytest.raises(err, match=what):
         loop.fit(cfg, log=False, device="cpu")

@@ -153,11 +153,12 @@ def both(bases, method, path, body=None, ctype="application/octet-stream", heade
 RANK_TIMEOUT_S = 120  # each rank's limit: a hung collective fails the test
 
 
-def launch_ranks(job, tmp_path, n=2):
-    """Run ``job`` (a dict the worker's cases read) in ``n`` worker ranks
-    over a gloo group with a ``file://`` store under ``tmp_path`` (no ports,
-    so no bind race); returns each rank's {case: result}. A rank that fails
-    or outlives RANK_TIMEOUT_S fails the call, and every rank is killed."""
+def launch_ranks(job, tmp_path, n=2, worker="torch_dp_worker"):
+    """Run ``job`` (a dict the worker's cases read) in ``n`` ranks of
+    ``tests/<worker>.py`` over a gloo group with a ``file://`` store under
+    ``tmp_path`` (no ports, so no bind race); returns each rank's {case:
+    result}. A rank that fails or outlives RANK_TIMEOUT_S fails the call,
+    and every rank is killed."""
     import os
     import subprocess
     import sys
@@ -171,7 +172,7 @@ def launch_ranks(job, tmp_path, n=2):
            if k not in ("MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK", "JAX_COORDINATOR_ADDRESS")}
     env.update(PYTHONPATH=root, WORLD_SIZE=str(n), OMP_NUM_THREADS="2")
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests.torch_dp_worker", str(job_path), f"file://{store}",
+        [sys.executable, "-m", f"tests.{worker}", str(job_path), f"file://{store}",
          str(tmp_path / f"rank{r}.pt")],
         cwd=root, env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(n)]
