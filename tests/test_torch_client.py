@@ -2,7 +2,9 @@
 encoder byte for byte on every wire, event detection on seeded timelines,
 label maps, wav IO and resampling; then the CLI end to end: ``python -m
 mla_tpu_torch serve`` on the CPU in a subprocess, tagged by ``python -m
-mla_tpu_torch tag``."""
+mla_tpu_torch tag``. The reference reads, resamples and encodes through its
+native library (``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -23,7 +25,15 @@ from mla_tpu.serve import events as jax_events  # noqa: E402
 from mla_tpu_torch.data import audio_io, labels  # noqa: E402
 from mla_tpu_torch.serve import client, events  # noqa: E402
 from mla_tpu_torch.serve.http import create_server  # noqa: E402
-from tests.torch_port_common import SMALL, configs, jax_weights, torch_state_dict  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    SMALL,
+    configs,
+    jax_weights,
+    reference_native_libraries,
+    torch_state_dict,
+)
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIRES = ["float32", "int16", "mulaw", "adpcm4", "adpcm2"]

@@ -6,7 +6,10 @@ side) and the torch-ops one at ``frontend.precision="highest"``, within
 1e-4 (at "default" the port rounds the DFT's operands to bf16, as the TPU
 did, where JAX on the CPU multiplies in f32); ``extract`` within 2e-4 at two
 sample rates; ``configs`` equal; and ``summary``'s whole table equal for
-four configurations, one with the VGGish trunk."""
+four configurations, one with the VGGish trunk. The reference reads wavs
+through its native library (``mla_tpu.data.native``), pinned for the whole
+module by ``reference_native_libraries``, never through its numpy / scipy
+fallback."""
 
 import sys
 
@@ -23,7 +26,14 @@ from mla_tpu.__main__ import main as jmain  # noqa: E402
 from mla_tpu_torch.__main__ import main as tmain  # noqa: E402
 from mla_tpu_torch.data.audio_io import write_wav  # noqa: E402
 from mla_tpu_torch.models import convert  # noqa: E402
-from tests.torch_port_common import SMALL, configs, jax_weights  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    SMALL,
+    configs,
+    jax_weights,
+    reference_native_libraries,
+)
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 SETS = ["--set"] + [f"{k}={v}" for k, v in SMALL.items()]
 

@@ -4,7 +4,9 @@ package's, on a tiny wav corpus written with scipy: the scans, fold lists
 and packs equal the reference's; cross_validate on 2 folds matches JAX's
 per-fold final stats and cv_results.csv rows at rtol 1e-4; the n_classes
 check raises the reference's message; and the cv verb runs as a subprocess
-with --device cpu."""
+with --device cpu. The reference reads wavs through its native library
+(``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -34,6 +36,9 @@ from mla_tpu_torch.models.zoo import build_model  # noqa: E402
 from mla_tpu_torch.train import cv  # noqa: E402
 from mla_tpu_torch.train import loop  # noqa: E402
 from tests.test_torch_train import _flat_jax  # noqa: E402
+from tests.torch_port_common import reference_native_libraries  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ("dog", "rain", "siren")

@@ -75,6 +75,44 @@ def test_trimmed_bases_equal_reference(kw):
     np.testing.assert_array_equal(k_mel.numpy(), ours[2])
 
 
+def _oracle_patches(wav, tcfg):
+    """float64 log-mel patches from freshly built bases (the port's builders,
+    equal to the reference's: test_trimmed_bases_equal_reference)."""
+    fresh = fe.trimmed_spectral_bases.__wrapped__(tcfg)
+    cos_b, sin_b, mel = (np.asarray(b, np.float64) for b in fresh[:3])
+    w, n = tcfg.window_length, tcfg.hop_length
+    t = 1 + (wav.shape[-1] - w) // n
+    frames = wav.astype(np.float64)[..., np.arange(t)[:, None] * n + np.arange(w)]
+    log_mel = np.log(np.hypot(frames @ cos_b, frames @ sin_b) @ mel + tcfg.log_offset)
+    k = tcfg.example_window_frames
+    t = t // k * k
+    return log_mel[..., :t, :].reshape(*wav.shape[:-1], t // k, k, -1)
+
+
+def _which_side_moved(wav, tcfg, jcfg, ours, ref, tol):
+    """For a failed parity check: each side's distance from the float64
+    oracle on the failing call and on a second call, and where the
+    violations lie, so a failure says which side moved and whether it
+    stays moved."""
+    oracle = _oracle_patches(wav, tcfg)
+    again = {"port": fe.waveform_to_patches(torch.from_numpy(wav), tcfg).numpy(),
+             "jax": np.asarray(jfe.waveform_to_patches(jnp.asarray(wav), jcfg))}
+    lines = [f"{side}: max |x - f64 oracle| {np.abs(x - oracle).max():.3e} on the failing call, "
+             f"{np.abs(again[side] - oracle).max():.3e} on a second call "
+             f"({'equal' if np.array_equal(x, again[side]) else 'not equal'} to the first)"
+             for side, x in (("port", ours), ("jax", ref))]
+    fresh = fe.trimmed_spectral_bases.__wrapped__(tcfg)[:3]
+    cached = {"port numpy": fe.trimmed_spectral_bases(tcfg)[:3],
+              "port tensors": [t.numpy() for t in fe.device_bases(tcfg, "cpu")],
+              "jax numpy": jfe.trimmed_spectral_bases(jcfg)[:3]}
+    lines.append("cached bases equal to fresh ones: " + ", ".join(
+        f"{k} {all(np.array_equal(a, b) for a, b in zip(v, fresh))}" for k, v in cached.items()))
+    bad = np.argwhere(np.abs(ours - ref) > tol)
+    lines.append(f"violations at (clip, patch, frame, bin): {bad[:12].tolist()}; "
+                 f"torch threads {torch.get_num_threads()}")
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("precision,tol", [("highest", 2e-4), ("high", 2e-4), ("bf16x3", 5e-4)])
 def test_waveform_to_patches_matches_jax(precision, tol):
     tcfg, jcfg = _cfgs(precision=precision)
@@ -82,7 +120,10 @@ def test_waveform_to_patches_matches_jax(precision, tol):
     ours = fe.waveform_to_patches(torch.from_numpy(wav), tcfg).numpy()
     ref = np.asarray(jfe.waveform_to_patches(jnp.asarray(wav), jcfg))
     assert ours.shape == ref.shape == (2, 3, 96, 64)
-    np.testing.assert_allclose(ours, ref, atol=tol)
+    try:
+        np.testing.assert_allclose(ours, ref, atol=tol)
+    except AssertionError as e:
+        raise AssertionError(f"{e}\n{_which_side_moved(wav, tcfg, jcfg, ours, ref, tol)}") from None
 
 
 def test_log_mel_spectrogram_matches_jax():

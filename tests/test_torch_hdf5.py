@@ -6,7 +6,9 @@ forked or spawned worker opens its own handle; take() on unsorted
 duplicates, the multi-pack split, the path globs and the synthetic pack
 equal the reference's; an out-of-core set is never staged or read whole;
 and ten fit() steps on a pack match JAX's losses at rtol 1e-4, in RAM and
-out of core."""
+out of core. The reference reads wavs through its native library
+(``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -36,6 +38,9 @@ from mla_tpu_torch.models.convert import flat_to_state_dict  # noqa: E402
 from mla_tpu_torch.models.zoo import build_model  # noqa: E402
 from mla_tpu_torch.train import loop  # noqa: E402
 from tests.test_torch_train import _flat_jax  # noqa: E402
+from tests.torch_port_common import reference_native_libraries  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 N_CLASSES = 6
 

@@ -4,7 +4,9 @@ status, the same JSON keys and labels, and probabilities within the
 reference tests' tolerance. Bodies: float32, audio/L16, audio/basic,
 audio/adpcm4 with a partial block and X-Samples, WAV; routes: the stream
 lifecycle, /v1/tag, ?sync=0, the timeline, /v1/reload, and the error
-paths."""
+paths. The reference decodes wav bodies and encodes ADPCM through its native
+library (``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -29,8 +31,11 @@ from tests.torch_port_common import (  # noqa: E402
     configs,
     http_call,
     jax_weights,
+    reference_native_libraries,
     torch_state_dict,
 )
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 MULAW_TOL = dict(rtol=0, atol=5e-2)  # a mu-law body against the float32 feed
 

@@ -5,7 +5,10 @@ one flat .npz loaded by both packages' ``weights --load`` into
 ``--thresholds`` table, and ``--wav_dir`` over three clips of different
 lengths with a timeline directory and a combined events file. Top-k names
 equal, scores and timelines within 1e-4, events equal (times exact, scores
-within 1e-4); the refusals carry the reference's messages."""
+within 1e-4); the refusals carry the reference's messages. The reference reads
+wavs through its native library (``mla_tpu.data.native``), pinned for the
+whole module by ``reference_native_libraries``, never through its numpy /
+scipy fallback."""
 
 import sys
 
@@ -23,7 +26,14 @@ import pytest  # noqa: E402
 from mla_tpu.__main__ import main as jmain  # noqa: E402
 from mla_tpu_torch.__main__ import main as tmain  # noqa: E402
 from mla_tpu_torch.data.audio_io import write_wav  # noqa: E402
-from tests.torch_port_common import SMALL, configs, jax_weights  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    SMALL,
+    configs,
+    jax_weights,
+    reference_native_libraries,
+)
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 TOL = 1e-4
 SETS = ["--set"] + [f"{k}={v}" for k, v in SMALL.items()]

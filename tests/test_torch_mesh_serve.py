@@ -4,7 +4,9 @@ mesh against JAX's 8 virtual devices, on the int16 and adpcm4 wires with
 the ring on (as tests/test_server.py:257-330 holds JAX's against its
 unsharded server); the packed rows layout byte for byte against JAX's; the
 packed tick against the three-upload tick bit for bit on a mesh; and a
-weight reload on a mesh."""
+weight reload on a mesh. The reference encodes ADPCM through its native
+library (``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -20,7 +22,14 @@ from mla_tpu_torch.data import audio_io  # noqa: E402
 from mla_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mla_tpu_torch.serve.server import BatchedStreamingServer  # noqa: E402
 from mla_tpu_torch.serve.streaming import _samples_per_patches  # noqa: E402
-from tests.torch_port_common import configs, jax_weights, torch_state_dict  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    configs,
+    jax_weights,
+    reference_native_libraries,
+    torch_state_dict,
+)
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 SCORE_TOL = 1e-4  # tests/test_torch_serve.py's, the port against JAX
 SHARD_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_server.py's, sharded against unsharded

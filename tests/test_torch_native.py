@@ -5,7 +5,11 @@ the resampler, mu-law and both ADPCM encoders bit-equal to the reference's
 library, within 1e-6 of scipy and bit-equal to the port's numpy codecs;
 the ring's pop sequence equal; and the port's ``audio_io`` / ``adpcm`` take
 the library where the reference does, with the numpy and scipy paths
-behind ``available()``."""
+behind ``available()``. Both libraries are built before the first test,
+and a failed build fails every test with g++'s output: the port's through
+its own builder, the reference's through ``reference_native`` (never the
+in-place build under native/ that the test processes race for at
+collection)."""
 
 import sys
 
@@ -21,9 +25,14 @@ from scipy.signal import resample_poly  # noqa: E402
 from mla_tpu.data import native as jnative  # noqa: E402
 from mla_tpu_torch.data import adpcm, audio_io, native  # noqa: E402
 from mla_tpu_torch.ops import _build  # noqa: E402
+from tests.torch_port_common import reference_native_libraries  # noqa: E402
 
-pytestmark = pytest.mark.skipif(not (native.available() and jnative.available()),
-                                reason="native audio_ingest failed to build (no g++?)")
+
+@pytest.fixture(scope="module", autouse=True)
+def libraries(reference_native_libraries):
+    _build.load_native("audio_ingest")
+    assert native.available() and jnative.available()
+    return reference_native_libraries
 
 
 def _wav_bytes(x, sr, dtype):

@@ -5,7 +5,10 @@ server's wire: C++ buffers it, no Python per request) and the slow paths
 (WAV bodies, mismatched wires, the flush tail, the one-shot tag), and every
 reply must match in status, keys and labels, probabilities within the
 reference tests' tolerance. Also: the build is the g++ build of the
-unedited source into build/mla_tpu_torch/, and a failed build raises."""
+unedited source into build/mla_tpu_torch/, and a failed build raises.
+JAX's front is the reference's own server code over its own library,
+loaded through ``reference_native_libraries`` (never the in-place build under
+native/ that the test processes race for at collection)."""
 
 import sys
 
@@ -30,6 +33,7 @@ from tests.torch_port_common import (  # noqa: E402
     configs,
     http_call,
     jax_weights,
+    reference_native_libraries,
     torch_state_dict,
 )
 
@@ -62,7 +66,7 @@ def _pair(setup, wire, current):
 
 
 @pytest.fixture(scope="module", params=["int16", "adpcm4"])
-def served(setup, request):
+def served(setup, reference_native_libraries, request):
     current = {"i": 0}
     ours, ref = _pair(setup, request.param, current)
     yield request.param, tuple("http://%s:%d" % s.server_address for s in (ours, ref)), current

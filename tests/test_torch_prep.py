@@ -4,7 +4,9 @@ pack of features and of waveforms, with ``--quantize``, a wav corpus with
 ``--wav_dir`` (class folders; a metadata CSV with ``--folds``), and
 ``--tfrecords`` over SequenceExamples this test writes with tensorflow
 (short and long clips, out-of-range labels). Every HDF5 array equals the
-reference's."""
+reference's. The reference reads wavs through its native library
+(``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -23,6 +25,9 @@ from mla_tpu.data import audioset as jaudioset  # noqa: E402
 from mla_tpu_torch.__main__ import main as tmain  # noqa: E402
 from mla_tpu_torch.data import audioset  # noqa: E402
 from mla_tpu_torch.data.audio_io import write_wav  # noqa: E402
+from tests.torch_port_common import reference_native_libraries  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 
 def _prep_both(tmp_path, argv):

@@ -3,7 +3,9 @@ JAX server on identical bytes (fused front-end, f32 compute, same weights)
 on every wire, the adpcm wires' pre-encoded feeds and remainders included,
 the packed one-upload tick against the three-upload tick and its byte
 layout against JAX's, StreamingTagger against tag_clip, and the device rule
-of the entry points."""
+of the entry points. The reference encodes ADPCM through its native library
+(``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -27,7 +29,14 @@ from mla_tpu_torch.serve.streaming import (  # noqa: E402
     _samples_per_patches,
     tag_clip,
 )
-from tests.torch_port_common import configs, jax_weights, torch_state_dict  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    configs,
+    jax_weights,
+    reference_native_libraries,
+    torch_state_dict,
+)
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 SCORE_TOL = 1e-4
 

@@ -2,7 +2,9 @@
 streams through the one tick thread score as a serial drive of the port's
 server does, an open()'s slot reset is not lost to an in-flight tick, async
 feeds are bounded by backpressure, and the port's loop agrees with JAX's on
-the same audio."""
+the same audio. The reference encodes ADPCM through its native library
+(``mla_tpu.data.native``), pinned for the whole module by
+``reference_native_libraries``, never through its numpy / scipy fallback."""
 
 import sys
 
@@ -18,7 +20,14 @@ from mla_tpu.serve.ticker import TickLoop as JaxTickLoop  # noqa: E402
 from mla_tpu_torch.serve.server import BatchedStreamingServer  # noqa: E402
 from mla_tpu_torch.serve.streaming import _samples_per_patches  # noqa: E402
 from mla_tpu_torch.serve.ticker import TickLoop  # noqa: E402
-from tests.torch_port_common import configs, jax_weights, torch_state_dict  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    configs,
+    jax_weights,
+    reference_native_libraries,
+    torch_state_dict,
+)
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 SERIAL_TOL = dict(rtol=1e-5, atol=1e-6)  # the loop against a serial drive of the port
 JAX_TOL = dict(rtol=1e-4, atol=1e-5)  # the port against JAX (f32)

@@ -8,7 +8,10 @@ one-process step, ``fit`` with ``train.model_parallel`` > 1 against the
 single-process fit, checkpoints across ``model_parallel``, the server with
 weights sharded over a single-process (2, 2) grid against JAX's server with
 TP-placed variables, and ``dryrun_multichip``. One launch of each rank
-count (tests/torch_tp_worker.py) runs every case, the two at once."""
+count (tests/torch_tp_worker.py) runs every case, the two at once. The
+reference encodes ADPCM through its native library (``mla_tpu.data.native``),
+pinned for the whole module by ``reference_native_libraries``, never through
+its numpy / scipy fallback."""
 
 import sys
 
@@ -46,7 +49,15 @@ from mla_tpu_torch.serve.streaming import _samples_per_patches  # noqa: E402
 from mla_tpu_torch.train import checkpoint, loop  # noqa: E402
 from mla_tpu_torch.train import state as tstate  # noqa: E402
 from tests.test_torch_dp import _adam_mu, _flat_jax  # noqa: E402
-from tests.torch_port_common import configs, jax_weights, launch_ranks, torch_state_dict  # noqa: E402,E501
+from tests.torch_port_common import (  # noqa: E402
+    configs,
+    jax_weights,
+    launch_ranks,
+    reference_native_libraries,
+    torch_state_dict,
+)
+
+pytestmark = pytest.mark.usefixtures("reference_native_libraries")
 
 B, N_SAMPLES = 8, 32000  # the global batch
 HIDDEN = 32

@@ -5,18 +5,34 @@ format, and their conversion into the port's ``state_dict``.
 Weights are made once by JAX ``model.init`` and perturbed with numpy, so
 biases, batch-norm scales and running statistics are not at their
 trivial init values; both sides then read the same arrays.
+
+Also: the JAX package's native libraries, built for the port's tests
+without a race (``reference_native``).
 """
+
+import contextlib
+import fcntl
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mla_tpu.config import get_config as jax_get_config
+from mla_tpu.data import native as jax_ingest
 from mla_tpu.models.convert import flat_to_params, params_to_flat
 from mla_tpu.models.zoo import build_model as jax_build_model
+from mla_tpu.serve import native_front as jax_front
 from mla_tpu_torch.config import get_config as torch_get_config
 from mla_tpu_torch.models.convert import flat_to_state_dict
 from mla_tpu_torch.models.zoo import build_model as torch_build_model
+
+ROOT = Path(__file__).resolve().parents[1]
 
 SMALL = {
     "model.conv_channels": "8,16",
@@ -189,3 +205,94 @@ def launch_ranks(job, tmp_path, n=2, worker="torch_dp_worker"):
            if p.returncode != 0]
     assert not bad, bad
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(n)]
+
+
+# --- the JAX package's native libraries, without the collection-time race ---
+#
+# The reference builds native/lib<name>.so in place, unlocked, and caches a
+# failed load for the life of the process (``_LIB = False``). Under xdist
+# every worker reaches those loaders while importing the test modules, so on
+# a fresh tree the workers race to write and load the same files, and a
+# worker that loads a half-written library keeps ``False`` for the run.
+
+# The reference's own g++ argv (``_build_and_load`` in
+# mla_tpu/serve/native_front.py and mla_tpu/data/native.py), less
+# "<src> -o <lib>".
+REFERENCE_GXX = ("g++", "-O3", "-std=c++17", "-fPIC", "-march=native", "-shared", "-pthread")
+REFERENCE_NATIVE_DIR = ROOT / "build" / "reference_native"
+
+
+@functools.lru_cache(maxsize=1)
+def _gxx_target() -> str:
+    """What ``-march=native`` resolves to here (a build for another CPU is
+    never loaded)."""
+    try:
+        return subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                              capture_output=True, text=True, check=True).stdout
+    except FileNotFoundError as e:
+        raise RuntimeError("g++ not found: the reference's native libraries cannot be "
+                           "built") from e
+
+
+def build_reference_native(name, src=None, out_root=None) -> Path:
+    """A directory laid out as the reference's loader reads its
+    ``_SRC_DIR``: ``<name>.cpp``, a copy of the unedited ``native/<name>.cpp``
+    (or ``src``), and ``lib<name>.so`` built from it with ``REFERENCE_GXX``.
+    One directory per hash of source, argv and target under ``out_root``
+    (``REFERENCE_NATIVE_DIR``); the build runs under an exclusive ``flock``
+    and lands by ``os.replace``, so no process sees a half-written file.
+    Raises with g++'s output if the build fails."""
+    src = Path(src or ROOT / "native" / f"{name}.cpp")
+    out_root = Path(out_root or REFERENCE_NATIVE_DIR)
+    code = src.read_bytes()
+    digest = hashlib.sha256(code + " ".join(REFERENCE_GXX).encode()
+                            + _gxx_target().encode()).hexdigest()[:16]
+    out = out_root / f"{name}_{digest}"
+    lib = out / f"lib{name}.so"
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out_root / f"{name}_{digest}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            # the source first: the loader rebuilds in place if it is newer than the library
+            (out / f"{name}.cpp").write_bytes(code)
+            tmp = out / f"lib{name}.{os.getpid()}.so.tmp"
+            proc = subprocess.run([*REFERENCE_GXX, str(out / f"{name}.cpp"), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed for {src.name} (exit {proc.returncode}):\n"
+                                   f"{proc.stderr}{proc.stdout}")
+            os.replace(tmp, lib)
+    return out
+
+
+REFERENCE_NATIVE_MODULES = {"serve_front": jax_front, "audio_ingest": jax_ingest}
+
+
+@contextlib.contextmanager
+def reference_native():
+    """The JAX package's native front (``mla_tpu.serve.native_front``) and
+    ingest library (``mla_tpu.data.native``), loaded by the reference's own
+    loaders from ``build_reference_native``'s directories, whatever a
+    collection-time race left in the process: each module's ``_SRC_DIR``
+    points there and its cached ``_LIB`` is reset, both restored on exit.
+    Yields {name: CDLL}. A failed build or load raises; nothing skips."""
+    with pytest.MonkeyPatch.context() as mp:
+        libs = {}
+        for name, module in REFERENCE_NATIVE_MODULES.items():
+            where = build_reference_native(name)
+            mp.setattr(module, "_SRC_DIR", str(where))
+            mp.setattr(module, "_LIB", None)
+            libs[name] = module._lib()
+            if libs[name] is None:
+                raise RuntimeError(f"{module.__name__} did not load {where / f'lib{name}.so'}")
+        yield libs
+
+
+@pytest.fixture(scope="module")
+def reference_native_libraries():
+    """``reference_native`` for a whole test module: the reference takes its
+    native wav decode, resampler and ADPCM encoders (``mla_tpu.data.audio_io``,
+    ``mla_tpu.data.adpcm``) and its native front, never their fallbacks."""
+    with reference_native() as libs:
+        yield libs
