@@ -301,6 +301,20 @@ def _device_busy_us(device_events) -> float:
     return busy_us + (0 if cur_e is None else cur_e - cur_s)
 
 
+def _device_work(prof) -> list:
+    """A profiler's device records that are work: without the profiler's
+    step annotation, which spans the whole window, and without a span's
+    range on the device timeline (``record_function``: the program's
+    ``mla.*`` spans), which also covers the gaps between its kernels. The
+    program's span store is emptied: nothing here reads it."""
+    from mla_tpu_torch.utils import profiling
+
+    profiling.clear()
+    return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.name.startswith("ProfilerStep")]
+
+
 def _profile(fn, n: int):
     """torch.profiler over n calls of fn, after one call in the profiler's
     warm-up step, whose trace is dropped, and a pause: device records stamped
@@ -323,10 +337,7 @@ def _profile(fn, n: int):
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
-    # device activity, without the profiler's own step annotation, which
-    # spans the whole window on the device timeline
-    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
-              and not ev.name.startswith("ProfilerStep")]
+    device = _device_work(prof)
     copies = {}
     for ev in device:
         if "memcpy" in ev.name.lower():
@@ -662,7 +673,7 @@ def _profiled_soak(client_mod, base, wire, bodies, ticks_fn, tag):
     ticks = ticks_fn() - t_before
     if waiter.is_alive() or ticks < FRONT_PROFILE_TICKS:
         raise RuntimeError(f"fronts profile: {ticks} ticks in {wall_ms:.1f} ms")
-    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device = _device_work(prof)
     if not device:
         print(f"fronts profile: device time not measured (the profiler saw no device "
               f"activity) {tag}")

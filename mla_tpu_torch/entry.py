@@ -22,6 +22,7 @@ from mla_tpu_torch._device import resolve_device
 from mla_tpu_torch.config import Config, get_config
 from mla_tpu_torch.models.zoo import AudioTagger, build_model
 from mla_tpu_torch.ops import frontend as fe
+from mla_tpu_torch.utils import profiling
 
 FLAGSHIP = "audioset_full_dp"
 # the reference's tiny overrides (__graft_entry__.py::_flagship_cfg)
@@ -45,9 +46,10 @@ def example_waveforms(cfg: Config) -> np.ndarray:
 
 def flagship_forward(cfg: Config) -> Callable[[AudioTagger, torch.Tensor], torch.Tensor]:
     """fn(model, wav): waveform [B, n] -> probs [B, C] through the front-end
-    ``cfg.frontend.impl`` selects, without autograd."""
+    ``cfg.frontend.impl`` selects, without autograd; while tracing, one
+    ``mla.forward`` span with device time."""
     def fn(model: AudioTagger, wav: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with profiling.annotate("mla.forward", wav.device), torch.inference_mode():
             return model(fe.apply_frontend(wav, cfg.frontend))
 
     return fn

@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mla_tpu_torch.parallel.distributed import all_reduce_sum
+from mla_tpu_torch.utils import profiling
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default epsilon
 _GN_EPS = 1e-6  # flax nn.GroupNorm's default epsilon (torch's GroupNorm uses 1e-5)
@@ -150,7 +151,11 @@ class CompactCNN(nn.Module):
     -> embed_dim + ReLU. ``norm`` is "batch" (``bn{stage}_{i}``), "group"
     (min(32, channels) groups, ``gn{stage}_{i}``) or "none" (the conv gets
     a bias). ``pool="avg"`` with ``global_pool="avg+max"`` is the PANNs
-    CNN10/CNN14 block structure."""
+    CNN10/CNN14 block structure. While tracing, each block's norm + ReLU is
+    a ``mla.trunk.norm_act`` span (``block``: its index) with device time,
+    only on a thread the profiler records: there the trace's timeline and
+    the norm + activation share read it; a thread it leaves out (the tick
+    thread) pays nothing a block."""
 
     def __init__(self, conv_channels: Sequence[int] = (64, 128, 256, 512),
                  convs_per_stage: int = 2, embed_dim: int = 128, norm: str = "batch",
@@ -184,14 +189,20 @@ class CompactCNN(nn.Module):
             x = x.unsqueeze(-1)
         dt = self.compute_dtype
         x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> NCHW
+        traced = profiling.recorded()
         for stage in range(len(self.conv_channels)):
             for i in range(self.convs_per_stage):
                 x = _conv3x3(getattr(self, f"conv{stage}_{i}"), x, dt)
-                if self.norm == "batch":
-                    x = getattr(self, f"bn{stage}_{i}")(x)
-                elif self.norm == "group":
-                    x = getattr(self, f"gn{stage}_{i}")(x)
-                x = torch.relu(x)
+                # the span holds norm and activation together, so it times
+                # the same work once a fused kernel replaces the two
+                with (profiling.annotate("mla.trunk.norm_act", x.device,
+                                         block=stage * self.convs_per_stage + i)
+                      if traced else profiling.OFF):
+                    if self.norm == "batch":
+                        x = getattr(self, f"bn{stage}_{i}")(x)
+                    elif self.norm == "group":
+                        x = getattr(self, f"gn{stage}_{i}")(x)
+                    x = torch.relu(x)
             if min(x.shape[2], x.shape[3]) >= 2:
                 x = F.avg_pool2d(x, 2, 2) if self.pool == "avg" else F.max_pool2d(x, 2, 2)
         if self.global_pool == "avg+max":

@@ -180,6 +180,7 @@ class BatchedStreamingServer:
         self._bufs: List[Optional[np.ndarray]] = [None] * self.S
         self._fed = np.zeros(self.S, bool)
         self.dispatches = 0  # device steps run (ticks and flushes)
+        self.patch_rows = 0  # patch rows the device steps computed, ready or not
         n_levels, c = n_stream_levels(cfg.model), cfg.model.n_classes
         self.timeline_cap = int(timeline_cap)
 
@@ -266,6 +267,7 @@ class BatchedStreamingServer:
         patches = fe.apply_frontend(wav, self.cfg.frontend)  # [S, P, 96, 64]
         levels = model.segment_logits(patches)
         p = patches.shape[1]
+        self.patch_rows += patches.shape[0] * p
         tmask = torch.arange(p, device=patches.device)[None, :] < n_valid[:, None]  # [S, P]
         mask = active[:, None]
         new_states = []

@@ -31,17 +31,29 @@ chunks it completed are folded into device state (so a ``scores()`` right
 after a feed reflects that audio, and the HTTP ``advanced`` field stays
 deterministic), but feeds on different streams overlap with each other and
 with device compute.
+
+Spans (``utils/profiling.py``; recorded only while a profiler runs): the
+tick thread's ``mla.tick`` (attributes ``tick``, ``streams``,
+``ready_rows`` and ``rows``, the patch rows the step computed by the
+server's ``patch_rows`` count) over its ``mla.tick.gather``,
+``mla.tick.upload`` and ``mla.tick.step``, the last two with the card's
+time on a single device (none on a mesh); one ``mla.queue`` per chunk
+(``stream``, ``seq``, ``tick``) from the feed that made it ready to the
+start of the gather that took it; and a reader's ``mla.scores.read``, the
+finalize and its copy to the host.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
 from mla_tpu_torch.serve.server import BatchedStreamingServer
+from mla_tpu_torch.utils import profiling
 
 
 class TickLoop:
@@ -66,6 +78,10 @@ class TickLoop:
         self._stop = False
         self.ticks = 0           # completed device ticks
         self.ticked_streams = 0  # sum of active stream counts over ticks
+        self._taken = np.zeros(server.S, np.int64)  # chunks gathered per stream since open
+        # while tracing: per stream, (seq, perf_counter_ns) of each chunk a
+        # feed made ready, oldest first (read by the gather's mla.queue spans)
+        self._made_ready: Dict[int, collections.deque] = {}
         self._thread = threading.Thread(target=self._run, name="mla-tick", daemon=True)
         self._thread.start()
 
@@ -73,11 +89,15 @@ class TickLoop:
     def open(self) -> int:
         # the slot reset replaces device state -> dev; the slot table -> cond
         with self.dev, self.cond:
-            return self.srv.open()
+            sid = self.srv.open()
+            self._taken[sid] = 0
+            self._made_ready.pop(sid, None)
+            return sid
 
     def close(self, sid: int):
         with self.cond:
             self.srv.close(sid)
+            self._made_ready.pop(sid, None)
             self.cond.notify_all()
 
     def stop(self):
@@ -100,8 +120,15 @@ class TickLoop:
         under ``cond``: the adpcm encoder's per-stream remainder needs the
         buffer lock."""
         with self.cond:
+            tracing = profiling.enabled()
+            before = self.srv.chunks_ready(sid) if tracing else 0
             self.srv.feed(sid, samples, wire=wire)
             n = self.srv.chunks_ready(sid)
+            if tracing and n > before:
+                now = time.perf_counter_ns()
+                first = int(self._taken[sid]) + before
+                self._made_ready.setdefault(sid, collections.deque()).extend(
+                    (first + j, now) for j in range(n - before))
             if n:
                 self.cond.notify_all()
         if sync:
@@ -155,7 +182,8 @@ class TickLoop:
             if not self.srv._fed[sid]:
                 raise RuntimeError(f"stream {sid} has no processed audio yet")
             model, states = self.srv.model, self.srv.states
-        return self.srv.scores_from(model, states, sid)
+        with profiling.annotate("mla.scores.read"):
+            return self.srv.scores_from(model, states, sid)
 
     def reload_weights(self, state_dict) -> None:
         """Weight swap while streams stay open (``server.reload_weights``
@@ -191,41 +219,75 @@ class TickLoop:
 
     def _run(self):
         srv = self.srv
+        dev = srv.device if srv._shards is None else None  # device time on one device only
         while True:
             with self.cond:
-                while not self._stop and self._n_ready() == 0:
+                n = self._n_ready()
+                while not self._stop and n == 0:
                     self.cond.wait()
+                    n = self._n_ready()
                 if self._stop:
                     return
                 if self.batch_grace > 0:
                     # some streams ready, maybe not all: give stragglers a
                     # moment so their chunks ride the same tick
                     deadline = time.monotonic() + self.batch_grace
-                    while (not self._stop and self._n_ready() < self.open_count_locked()
+                    while (not self._stop and n < self.open_count_locked()
                            and time.monotonic() < deadline):
                         self.cond.wait(deadline - time.monotonic())
+                        n = self._n_ready()
                     if self._stop:
                         return
+                if n == 0:  # a close took the ready streams during the grace
+                    continue
+                # the tick's span runs from the gather to the step's
+                # assignment, across the locks: opened and closed by hand
+                tick = profiling.annotate("mla.tick", tick=self.ticks)
+                tick.__enter__()
                 # a new staging buffer per tick (pinned on the card): the
                 # caching host allocator hands its block out again only
                 # after the copy from it has finished, so no tick's bytes
                 # are overwritten while in flight
-                buf = srv.packed_buffer()
-                active = srv.gather_ready_packed(buf)
-                if active is None:
-                    continue
+                with profiling.annotate("mla.tick.gather") as gather:
+                    buf = srv.packed_buffer()
+                    active = srv.gather_ready_packed(buf)
+                if self._made_ready:
+                    self._queue_spans(active, gather.start_ns if gather else 0)
+                self._taken += active
                 self._dispatching = True
-            dev_buf = srv.put_packed(buf)  # the upload, outside both locks
+            with profiling.annotate("mla.tick.upload", dev):
+                dev_buf = srv.put_packed(buf)  # the upload, outside both locks
             del buf
-            with self.dev:
+            with profiling.annotate("mla.tick.step", dev), self.dev:
+                rows = srv.patch_rows
                 srv.states, srv.tl = srv._packed_step(srv.states, srv.tl, dev_buf)
                 srv.dispatches += 1
+                rows = srv.patch_rows - rows
+            streams = int(active.sum())
+            tick.set(streams=streams, ready_rows=streams * srv.chunk_patches, rows=rows)
+            tick.__exit__(None, None, None)
             with self.cond:
                 srv._fed |= active
                 self._dispatching = False
                 self.ticks += 1
-                self.ticked_streams += int(active.sum())
+                self.ticked_streams += streams
                 self.cond.notify_all()
+
+    def _queue_spans(self, active: np.ndarray, gathered_ns: int):
+        """One ``mla.queue`` span per chunk the gather took that a traced
+        feed made ready, ending at the gather's start (caller holds cond)."""
+        for sid in np.flatnonzero(active):
+            stamps = self._made_ready.get(int(sid))
+            if not stamps:
+                continue
+            seq = int(self._taken[sid])
+            while stamps and stamps[0][0] < seq:  # chunks taken while tracing was off
+                stamps.popleft()
+            if stamps and stamps[0][0] == seq:
+                profiling.record("mla.queue", stamps.popleft()[1], gathered_ns,
+                                 stream=int(sid), seq=seq, tick=self.ticks)
+            if not stamps:
+                del self._made_ready[int(sid)]
 
     def open_count_locked(self) -> int:
         """Open streams that could still contribute to this tick: any open

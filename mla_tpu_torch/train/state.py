@@ -6,7 +6,11 @@ One train step: decode the staged wire form -> front-end (outside autograd;
 waveform or patch input (``ops/augment.py``), when the config asks ->
 train-mode forward (batch statistics, dropout) -> BCE -> backward -> global-norm clip -> Adam at the
 scheduled learning rate -> EMA. PyTorch updates in place, so the step
-mutates the ``TrainState`` it is given and returns it with the loss.
+mutates the ``TrainState`` it is given and returns it with the loss. While
+tracing, the step is a ``mla.train.step`` span (``step``) over its phases
+``mla.train.frontend``, ``.forward``, ``.backward`` (data parallel, with
+the gradients' mean over the ranks) and ``.optimizer``, each with the
+card's time.
 
 The optimizer reproduces the reference's optax chain: Adam with beta
 0.9 / 0.999 and eps 1e-8 computes lr * m_hat / (sqrt(v_hat) + eps) with the
@@ -37,6 +41,7 @@ from mla_tpu_torch.ops import frontend as fe
 from mla_tpu_torch.ops.adpcm import adpcm_decode
 from mla_tpu_torch.parallel import tensor
 from mla_tpu_torch.parallel.distributed import gather_rows
+from mla_tpu_torch.utils import profiling
 
 _EPS = 1e-7
 ADAM_BETAS = (0.9, 0.999)
@@ -218,13 +223,8 @@ def make_train_step(
     lay = tensor.layout_of(model)
     model_group = None if lay is None or lay.axis.local else lay.axis.group
 
-    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
-        if input_kind == "waveform":
-            with torch.no_grad():  # data transform: no gradient reaches the front-end
-                x_in = fe.apply_frontend(decode_staged(x, cfg.data.staging_dtype, clip_samples),
-                                         front_cfg)
-        else:
-            x_in = x
+    def forward(state: TrainState, x_in: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Augmentation, the train-mode forward and the loss."""
         dev = x_in.device
         if t_cfg.mixup_alpha > 0:
             gen = augment_generator(t_cfg.seed, state.step, 2, dev)
@@ -249,20 +249,16 @@ def make_train_step(
         if dp is not None:
             gen = GlobalRows(gen, dp.global_batch, dp.rows)
         model.train()
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        with global_statistics(model, dp.group if dp is not None and dp.size > 1 else None):
-            # the backward too: a checkpointed trunk re-runs its forward there
-            loss = bce_loss(model(x_in, gen), y)
-            loss.backward()
-        if dp is not None:
-            with_grad = [p for p in params if p.grad is not None]
-            loss = _average_over_ranks([p.grad for p in with_grad], loss, dp,
-                                       [id(p) in shard_ids for p in with_grad])
+        state.optimizer.zero_grad(set_to_none=True)
+        return bce_loss(model(x_in, gen), y)
+
+    def update(state: TrainState):
+        """Clipping, the learning rate, Adam and the EMA."""
         if t_cfg.gradient_clip_norm > 0:
             with_grad = [p for p in params if p.grad is not None]
             clip_by_global_norm_([p.grad for p in with_grad], t_cfg.gradient_clip_norm,
                                  [id(p) in shard_ids for p in with_grad], model_group)
+        opt = state.optimizer
         for group in opt.param_groups:
             group["lr"] = sched(state.step)
         opt.step()
@@ -272,7 +268,30 @@ def make_train_step(
                 for n, p in zip(names, params):
                     e = state.ema_params[n]
                     e.copy_(d * e + (1.0 - d) * p)
-        state.step += 1
+
+    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        # one span with device time, its phases back to back on the card
+        with profiling.annotate("mla.train.step", x.device, step=state.step) as span:
+            if input_kind == "waveform":
+                # data transform: no gradient reaches the front-end
+                with span.phase("mla.train.frontend"), torch.no_grad():
+                    x_in = fe.apply_frontend(
+                        decode_staged(x, cfg.data.staging_dtype, clip_samples), front_cfg)
+            else:
+                x_in = x
+            # the backward too: a checkpointed trunk re-runs its forward there
+            with global_statistics(model, dp.group if dp is not None and dp.size > 1 else None):
+                with span.phase("mla.train.forward"):
+                    loss = forward(state, x_in, y)
+                with span.phase("mla.train.backward"):
+                    loss.backward()
+                    if dp is not None:
+                        with_grad = [p for p in params if p.grad is not None]
+                        loss = _average_over_ranks([p.grad for p in with_grad], loss, dp,
+                                                   [id(p) in shard_ids for p in with_grad])
+            with span.phase("mla.train.optimizer"):
+                update(state)
+            state.step += 1
         return state, loss.detach()
 
     return step
