@@ -9,7 +9,7 @@ printing its last line:
      whether h5py, tensorboard, tensorflow, matplotlib and sklearn import on
      this machine;
   2. build: every kernel source in mla_tpu_torch/csrc (fused_frontend.cu,
-     row_merge.cu, adpcm.cu), one nvcc each, and the two host libraries
+     row_merge.cu, adpcm.cu, norm_act.cu), one nvcc each, and the two host libraries
      (native/serve_front.cpp, native/audio_ingest.cpp), one g++ each, all
      started together, timed, with nvcc's ptxas report; data/native.py must
      load the ingest library, which from then on carries every wav read,
@@ -29,6 +29,14 @@ printing its last line:
      its plain version, the golden wires (tests/golden/adpcm_wire.npz,
      adpcm2_wire.npz), the host decoder and a random-bytes wire, both bit
      widths, at the serving and training shapes;
+  3b. the batch-norm + ReLU kernels (csrc/norm_act.cu) at the flagship's
+     eight block shapes, tag (1,280 patches, eval: apply) and train (2,560:
+     stats, apply, backward_reduce, backward_dx), channels-last bf16: the
+     elementwise kernels bit-exact against their plain versions, the
+     reductions within 1e-5 of their f64 sums and bit-identical run to run;
+     each timed against its byte bound beside the plain version and
+     F.batch_norm + relu (library_ms); then the launches of a flagship
+     forward (8 apply) and train step (8 of each kernel);
   4. the probe entry point (python -m mla_tpu_torch.probe_row_merge): its
      verdict must be "supported", through scale2 and row_merge_bulk;
   5. the serving path at full width: BatchedStreamingServer on the
@@ -178,8 +186,9 @@ printing its last line:
   11. tensor parallelism on the one card: the rule's sharded names on the
      flagship and serving trees at model 2 (15 each) and the bytes a rank
      holds; fit with train.model_parallel=2 on two gloo ranks against one
-     process (us8k as shipped, 3 steps and an eval, losses within 1e-4, one
-     mma launch per step and eval batch a rank; us8k f32 with TF32 off, one
+     process (us8k as shipped, 3 steps and an eval, each step's loss within
+     2x the furthest of eight one-ulp input controls of one process at that
+     step, at least 1e-4, one mma launch per step and eval batch a rank; us8k f32 with TF32 off, one
      step, gradients against the one-ulp control; audioset_full_dp at a
      global batch of 128, losses within 1e-3, step ms, idle share, peak
      memory and the collectives' host ms a rank) and on a (2, 2) grid of four
@@ -271,6 +280,183 @@ FLAGSHIP_STEPS = 3  # train steps per front-end impl before the timed ones
 PORT_KERNELS = (("fused_log_mel", "fused_log_mel_patches"), ("scale2_kernel", "scale2"),
                 ("row_merge_bulk", "row_merge"), ("row_merge_generic", "row_merge"),
                 ("adpcm_decode_scan", "adpcm_decode scan"), ("adpcm_decode", "adpcm_decode serial"))
+
+
+# the flagship's trunk blocks: (H, W, C) of each conv's output for one
+# 96 x 64 patch, two blocks a stage; the tag cell's forward is 128 clips x
+# 10 patches, the train cell's step 256 x 10
+NORM_ACT_BLOCKS = ((96, 64, 64), (96, 64, 64), (48, 32, 128), (48, 32, 128),
+                   (24, 16, 256), (24, 16, 256), (12, 8, 512), (12, 8, 512))
+NORM_ACT_PATCHES = {"tag": 1280, "train": 2560}
+
+
+def _norm_act_phase(tag) -> dict:
+    """Phase 3b: the batch-norm + ReLU kernels (csrc/norm_act.cu) at the
+    flagship's block shapes, tag (eval: apply) and train (stats, apply,
+    backward_reduce, backward_dx), channels-last bf16 as the convolutions
+    leave them: each against its plain version on the card (the elementwise
+    kernels bit-exact given the same vectors, the reductions within f32
+    summation-order error, and bit-identical from run to run), each timed
+    against its byte bound beside the plain version and F.batch_norm +
+    relu (library_ms: the port never calls it); then the launches of a
+    flagship forward (128 x 10 s) and of a flagship train step (8 blocks:
+    8 apply; 8 stats + 8 apply + 8 backward_reduce + 8 backward_dx)."""
+    import torch.nn.functional as F
+
+    from mla_tpu_torch.entry import flagship_config, flagship_forward
+    from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.ops import norm_act as na
+    from mla_tpu_torch.train.state import create_train_state, make_train_step
+    from mla_tpu_torch.utils.cuda_timing import device_median_ms
+
+    t_phase = time.perf_counter()
+    ops = torch.ops.mla_tpu_torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rec = {"shapes": {}}
+    for size, patches in NORM_ACT_PATCHES.items():
+        for h, w, c in sorted(set(NORM_ACT_BLOCKS), key=lambda b: -b[0]):
+            key = f"{size} [{patches}, {c}, {h}, {w}]"
+            x = (torch.randn((patches, c, h, w), generator=gen, device="cuda") * 2 + 0.5).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            weight = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bias = torch.randn(c, generator=gen, device="cuda") * 0.5
+            mean = torch.randn(c, generator=gen, device="cuda") * 0.1 + 0.5
+            var = torch.rand(c, generator=gen, device="cuda") + 3.5
+            rstd = torch.rsqrt(var + 1e-5)
+            scale = rstd * weight
+            r = {"bytes": {k: na.bytes_moved(x, k) for k in na.LAUNCHES}}
+            r["bound_ms"] = {k: b / PEAK_BYTES * 1e3 for k, b in r["bytes"].items()}
+            # the elementwise kernels equal their plain versions bit for bit
+            y = ops.norm_act_apply(x, mean, scale, bias)
+            if not torch.equal(y, na.apply_reference(x, mean, scale, bias)):
+                raise RuntimeError(f"norm_act apply at {key} is not bit-exact against the plain "
+                                   f"version")
+            r["ms"] = {"apply": device_median_ms(lambda: ops.norm_act_apply(x, mean, scale, bias))}
+            r["plain_ms"] = {"apply": device_median_ms(
+                lambda: na.apply_reference(x, mean, scale, bias), reps=5, inner=2)}
+            r["library_ms"] = {"apply": device_median_ms(
+                lambda: torch.relu(F.batch_norm(x, mean, var, weight, bias, False, 0.0, 1e-5)),
+                reps=5, inner=2)}
+            if size == "train":
+                dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+                dy = dy.contiguous(memory_format=torch.channels_last)
+                # the reductions against f64 sums of the same terms, as a share
+                # of the sum of the terms' magnitudes, beside the plain version's
+                xd = x.double()
+                exact = torch.stack([xd.sum(dim=(0, 2, 3)), (xd * xd).sum(dim=(0, 2, 3))])
+                mag = torch.stack([xd.abs().sum(dim=(0, 2, 3)), exact[1]])
+                del xd
+                g, xhat = na._gate_and_xhat(dy, x, mean, rstd, scale, bias)
+                gd, gxd = g.double(), (g * xhat).double()
+                bexact = torch.stack([gd.sum(dim=(0, 2, 3)), gxd.sum(dim=(0, 2, 3))])
+                bmag = torch.stack([gd.abs().sum(dim=(0, 2, 3)), gxd.abs().sum(dim=(0, 2, 3))])
+                del g, xhat, gd, gxd
+
+                def sum_err(got, want, scale_):
+                    return float(((got.double() - want).abs() / scale_.clamp_min(1e-30)).max())
+
+                sums = ops.norm_act_stats(x)
+                bsums = ops.norm_act_backward_reduce(dy, x, mean, rstd, scale, bias)
+                errs = {"stats": sum_err(sums, exact, mag),
+                        "stats_plain": sum_err(na.stats_reference(x), exact, mag),
+                        "backward_reduce": sum_err(bsums, bexact, bmag),
+                        "backward_reduce_plain": sum_err(
+                            na.backward_reduce_reference(dy, x, mean, rstd, scale, bias), bexact,
+                            bmag)}
+                repeat = (torch.equal(sums, ops.norm_act_stats(x)) and torch.equal(
+                    bsums, ops.norm_act_backward_reduce(dy, x, mean, rstd, scale, bias)))
+                cb, cc = bsums[0] / x[:, 0].numel(), bsums[1] / x[:, 0].numel()
+                dx = ops.norm_act_backward_dx(dy, x, mean, rstd, scale, bias, cb, cc)
+                dx_exact = torch.equal(dx, na.backward_dx_reference(dy, x, mean, rstd, scale,
+                                                                     bias, cb, cc))
+                r.update(sum_err=errs, repeats_bit_for_bit=repeat, dx_bit_exact=dx_exact)
+                if max(errs["stats"], errs["backward_reduce"]) > 1e-5 or not repeat or not dx_exact:
+                    raise RuntimeError(f"norm_act train kernels at {key}: {r}")
+                r["ms"].update(
+                    stats=device_median_ms(lambda: ops.norm_act_stats(x)),
+                    backward_reduce=device_median_ms(
+                        lambda: ops.norm_act_backward_reduce(dy, x, mean, rstd, scale, bias)),
+                    backward_dx=device_median_ms(
+                        lambda: ops.norm_act_backward_dx(dy, x, mean, rstd, scale, bias, cb, cc)))
+                r["plain_ms"].update(
+                    stats=device_median_ms(lambda: na.stats_reference(x), reps=5, inner=2),
+                    backward_reduce=device_median_ms(lambda: na.backward_reduce_reference(
+                        dy, x, mean, rstd, scale, bias), reps=5, inner=2),
+                    backward_dx=device_median_ms(lambda: na.backward_dx_reference(
+                        dy, x, mean, rstd, scale, bias, cb, cc), reps=5, inner=2))
+                # the train block, forward and forward + backward: the fused op
+                # against F.batch_norm + relu in train mode
+                xg = x.detach().requires_grad_(True)
+                wg, bg = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+
+                def fused_step():
+                    out = na.norm_relu_train(xg, wg, bg, 1e-5)[0]
+                    out.backward(dy)
+
+                def library_step():
+                    out = torch.relu(F.batch_norm(xg, None, None, wg, bg, True, 0.0, 1e-5))
+                    out.backward(dy)
+
+                r["ms"]["train_forward_backward"] = device_median_ms(fused_step, reps=5, inner=2)
+                r["library_ms"]["train_forward_backward"] = device_median_ms(
+                    library_step, reps=5, inner=2)
+                del dy, xg, wg, bg
+            r["roofline"] = {k: r["bound_ms"][k] / ms for k, ms in r["ms"].items()
+                             if k in r["bound_ms"]}
+            rec["shapes"][key] = r
+            print(f"norm_act {key}: ms {json.dumps(r['ms'])}; bound ms "
+                  f"{json.dumps({k: round(v, 5) for k, v in r['bound_ms'].items()})}; share of "
+                  f"the byte bound {json.dumps({k: round(v, 4) for k, v in r['roofline'].items()})}"
+                  f"; plain ms {json.dumps(r['plain_ms'])}; library ms "
+                  f"{json.dumps(r['library_ms'])} {tag}")
+            del x, y
+            torch.cuda.empty_cache()
+    # the eight blocks of a tag forward: apply against its bound, in all
+    blocks = {size: [rec["shapes"][f"{size} [{p}, {c}, {h}, {w}]"] for h, w, c in NORM_ACT_BLOCKS]
+              for size, p in NORM_ACT_PATCHES.items()}
+    for size, rs in blocks.items():
+        tot = {k: sum(r["ms"][k] for r in rs) for k in rs[0]["ms"] if k in rs[0]["bound_ms"]}
+        bound = {k: sum(r["bound_ms"][k] for r in rs) for k in tot}
+        eight = rec[f"{size}_eight_blocks"] = {
+            "ms": tot, "bound_ms": bound,
+            "plain_ms": {k: sum(r["plain_ms"][k] for r in rs) for k in tot},
+            "library_ms": {k: sum(r["library_ms"][k] for r in rs) for k in rs[0]["library_ms"]},
+            "roofline": {k: bound[k] / tot[k] for k in tot}}
+        print(f"norm_act, the eight blocks of a {size} step: {json.dumps(eight)} {tag}")
+
+    # the main path's launches: a flagship forward at 128 x 10 s, a train step
+    cfg = flagship_config()
+    model = build_model(cfg.model, seed=SEED)
+    n = int(round(cfg.data.clip_seconds * cfg.frontend.sample_rate))
+    wav = torch.randn((FLAGSHIP_BATCH, n), generator=gen, device="cuda") * 0.1
+    labels = (torch.rand((FLAGSHIP_BATCH, cfg.model.n_classes), generator=gen, device="cuda")
+              < 0.05).float()
+    for k in na.LAUNCHES:
+        na.LAUNCHES[k] = 0
+    model.eval()
+    flagship_forward(cfg)(model, wav)
+    torch.cuda.synchronize()
+    fwd = dict(na.LAUNCHES)
+    for k in na.LAUNCHES:
+        na.LAUNCHES[k] = 0
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, "waveform")
+    loss = float(step(state, wav, labels)[1])
+    torch.cuda.synchronize()
+    train = dict(na.LAUNCHES)
+    rec["launches"] = {"flagship_forward": fwd, "flagship_train_step": train}
+    print(f"norm_act launches: flagship forward {fwd}; flagship train step {train} (loss "
+          f"{loss:.6f})")
+    want_fwd = {"apply": 8, "stats": 0, "backward_reduce": 0, "backward_dx": 0}
+    want_train = {"apply": 8, "stats": 8, "backward_reduce": 8, "backward_dx": 8}
+    if fwd != want_fwd or train != want_train or not np.isfinite(loss):
+        raise RuntimeError(f"norm_act launches on the main path: forward {fwd} (want {want_fwd}),"
+                           f" train step {train} (want {want_train}), loss {loss}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 3b: {rec['phase_s']:.1f} s {tag}")
+    return rec
 
 
 def _probe_key(shape, rows, offset) -> str:
@@ -2052,6 +2238,43 @@ def _ulp_control(preset, overrides) -> dict:
     return {"step": out[0], "scaled": out[1], "lr": cfg.train.learning_rate}
 
 
+def _loss_control(preset, overrides, ref_losses) -> dict:
+    """The one-process fit's train steps replayed on its own batches (the
+    balanced sampler's, gathered as fit gathers a device-resident set), once
+    as they are and on the input scaled by 1 + k 2^-23 for k = 1 ..
+    LOSS_CONTROLS: each run's relative loss gap to ``ref_losses`` (the fit's)
+    at every step, and the largest per step. In bf16 Adam carries a
+    rounding-level change of the forward into losses ~1e-3 apart by step 3,
+    on any tree: this is the noise a rounding-level change of the
+    arithmetic (a sharded matmul's sum order) is held against."""
+    from mla_tpu_torch.config import get_config
+    from mla_tpu_torch.data.sampler import BalancedSampler
+    from mla_tpu_torch.data.synthetic import make_dataset
+    from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.train.state import create_train_state, make_train_step
+
+    cfg = get_config(preset, overrides)
+    ds = make_dataset(cfg.data, cfg.model.n_classes, "train", "waveform", cfg.frontend)
+    sampler = BalancedSampler(ds.y, cfg.train.batch_size, cfg.train.seed)
+    idxs = [sampler.next_batch() for _ in range(cfg.train.num_steps)]
+    xs = [np.ascontiguousarray(np.asarray(ds.x[i], np.float32)) for i in idxs]
+    ys = [torch.from_numpy(np.asarray(ds.y[i], np.float32)).cuda() for i in idxs]
+    ref = np.asarray(ref_losses)
+    gaps = []
+    for k in range(LOSS_CONTROLS + 1):
+        model = build_model(cfg.model, seed=cfg.train.seed)
+        st = create_train_state(cfg, model)
+        step = make_train_step(cfg, model, "waveform", clip_samples=xs[0].shape[1])
+        losses = []
+        for x, y in zip(xs, ys):
+            x = (x * np.float32(1.0 + k * 2.0 ** -23)).astype(np.float32) if k else x
+            st, loss = step(st, torch.from_numpy(x).cuda(), y)
+            losses.append(float(loss))
+        gaps.append((np.abs(np.asarray(losses) - ref) / np.abs(ref)).tolist())
+        del model, st, step
+    return {"rel_gaps": gaps, "max_rel_by_step": np.max(gaps, axis=0).tolist()}
+
+
 def _csv_losses(path):
     with open(path) as fh:
         return {int(r["step"]): float(r["value"]) for r in csv.DictReader(fh)
@@ -2383,7 +2606,11 @@ def _parallelism(scfg, state_dict, streams, schedule, zero_counts, check_launche
 # the single-process grid's entries, all name cuda:0)
 TP_SERVE_F32_TOL = 1e-6  # TP server against the unsharded one, f32, TF32 off
 TP_SERVE_BF16_BUDGET = 1e-3
-TP_US8K_LOSS_RTOL = 1e-4  # 11b, bf16 "highest", against one process
+# 11b, us8k bf16: each step's loss within 2x the furthest of the one-ulp
+# loss controls (_loss_control) at that step of one process's, and within
+# TP_US8K_LOSS_RTOL where every control is closer (step 1)
+TP_US8K_LOSS_RTOL = 1e-4
+LOSS_CONTROLS = 8
 TP_FLAGSHIP_LOSS_RTOL = 1e-3  # 11c, bf16, the loose budget
 TP_FLAGSHIP_BATCH = 128  # 11c's global batch (both ranks hold all of it on one card)
 MP = "train.model_parallel"
@@ -2468,6 +2695,9 @@ def _tensor_parallelism(scfg, state_dict, state_dict2, streams, schedule, zero_c
             single[key] = _dp_fit(name + "_single", preset, _single_overrides(over), f32, ws,
                                   dp_timing=name.endswith("flagship"))
     ulp = _ulp_control("us8k_fused_frontend", _single_overrides(runs[2]["tp_us8k_f32_step1"][1]))
+    bf16_over = _single_overrides(runs[2]["tp_us8k"][1])
+    loss_ctl = _loss_control("us8k_fused_frontend", bf16_over, single[
+        ("us8k_fused_frontend", json.dumps(bf16_over, sort_keys=True), False)]["losses"])
     ranks = {}
     for world in (2, 4):
         job = os.path.join(ws, f"job{world}.json")
@@ -2522,9 +2752,20 @@ def _tensor_parallelism(scfg, state_dict, state_dict2, streams, schedule, zero_c
                         or entry["grad_diff_over_tol"] > max(
                             1.0, 2 * entry["ulp_control"]["grad_diff_over_tol"])):
                     raise RuntimeError(f"11 {name}: {entry}")
-            elif lrel > (TP_FLAGSHIP_LOSS_RTOL if name.endswith("flagship")
-                         else TP_US8K_LOSS_RTOL):
-                raise RuntimeError(f"11 {name}: {entry}")
+            elif name.endswith("flagship"):
+                if lrel > TP_FLAGSHIP_LOSS_RTOL:
+                    raise RuntimeError(f"11 {name}: {entry}")
+            else:
+                bound = np.maximum(TP_US8K_LOSS_RTOL, 2 * np.asarray(loss_ctl["max_rel_by_step"]))
+                rel = np.abs(l0 - lref) / np.abs(lref)
+                entry.update(loss_rel_by_step=rel.tolist(), loss_bound_by_step=bound.tolist(),
+                             loss_control=loss_ctl)
+                print(f"11 {name}: loss gaps by step {np.round(rel, 7).tolist()} against "
+                      f"{np.round(bound, 7).tolist()} (the one-ulp controls' furthest x 2, at "
+                      f"least {TP_US8K_LOSS_RTOL}; the control as run "
+                      f"{np.round(loss_ctl['rel_gaps'][0], 7).tolist()})")
+                if not (rel <= bound).all():
+                    raise RuntimeError(f"11 {name}: {entry}")
             if name.endswith("flagship"):
                 entry.update(step_ms=[r["step_ms"] for r in rs],
                              idle_share=[r["idle_share"] for r in rs],
@@ -2676,6 +2917,7 @@ def main() -> int:
     from mla_tpu_torch.ops import attention_pool as ap
     from mla_tpu_torch.ops import frontend as fe
     from mla_tpu_torch.ops import fused_frontend as ff
+    from mla_tpu_torch.ops import norm_act as na
     from mla_tpu_torch.ops import row_merge as rm
     from mla_tpu_torch.ops.frontend import trimmed_spectral_bases
     from mla_tpu_torch.serve.server import BatchedStreamingServer
@@ -2711,7 +2953,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source and the native front's g++, all started together
     sources = {"fused_frontend": ff._SIGNATURES, "row_merge": rm._SIGNATURES,
-               "adpcm": ad._SIGNATURES}
+               "adpcm": ad._SIGNATURES, "norm_act": na._SIGNATURES}
 
     def build(src):
         t0 = time.perf_counter()
@@ -2873,6 +3115,9 @@ def main() -> int:
         check_decode(f"{bits}-bit random bytes [8, 77120] block 64", junk.cuda(), 77120, 64, bits,
                      ad.adpcm_decode_reference(junk, 77120, 64, bits).cuda())
     record["adpcm_max_abs_err"] = adpcm_errs
+
+    # 3b. the batch-norm + ReLU kernels at the flagship's block shapes
+    record["norm_act"] = _norm_act_phase(tag)
 
     # 4. the probe entry point
     for k in rm.LAUNCHES:
@@ -3830,6 +4075,26 @@ def main() -> int:
             "plain_ms_by_case": {k: c["plain_ms"] for k, c in adpcm_ms.items()},
             "bound_ms_by_case": {k: c["bound_ms"] for k, c in adpcm_ms.items()},
         })
+    na_rec = record["norm_act"]
+    na_tag, na_train = na_rec["tag_eight_blocks"], na_rec["train_eight_blocks"]
+    kernels.append({
+        "name": "norm_act",
+        "route": "cuda",
+        "source": "mla_tpu_torch/csrc/norm_act.cu",
+        "replaces": None,
+        "replaces_note": "port-only: flax nn.BatchNorm + ReLU (mla_tpu/models/trunk.py) left to "
+                         "XLA, no pallas_call",
+        "launches": na_rec["launches"],
+        "ms": na_tag["ms"]["apply"],
+        "plain_ms": na_tag["plain_ms"]["apply"],
+        "bound_ms": na_tag["bound_ms"]["apply"],
+        "bound_by": "bytes",
+        "library_ms": na_tag["library_ms"]["apply"],
+        "library_call": "torch.relu(F.batch_norm(x, ...))",
+        "site": "apply, the eight blocks of a tag forward (1,280 patches)",
+        "train": na_train,
+        "by_shape": na_rec["shapes"],
+    })
     for k, line in (("scale2", 33), ("row_merge", 28)):
         t = probe_ms[k][main_probe]
         by_variant = {"scale2": probe_launches["scale2"]} if k == "scale2" else {

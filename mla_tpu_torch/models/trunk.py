@@ -6,7 +6,8 @@ a deep CNN over each 96x64 log-mel patch -> one embedding per ~1 s segment.
 The public layout is the reference's NHWC ([B, H, W] or [B, H, W, 1] in);
 the module permutes to NCHW inside, PyTorch's native conv layout. Compute
 follows the flax modules: inputs and weights cast to ``dtype``, parameters
-stored in f32, batch norm evaluated in f32 and cast back. In train mode
+stored in f32, batch norm evaluated in f32 and cast back (with the ReLU
+after it, one fused kernel family on the card). In train mode
 (``module.train()``) batch norm normalizes with the batch's statistics and
 updates its running ones as flax does; in eval mode it reads the running
 statistics. A forward that ``torch.utils.checkpoint`` re-runs in the
@@ -21,11 +22,10 @@ import contextlib
 from typing import Sequence
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mla_tpu_torch.parallel.distributed import all_reduce_sum
+from mla_tpu_torch.ops import norm_act
 from mla_tpu_torch.utils import profiling
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default epsilon
@@ -45,9 +45,18 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-class _BatchNorm(nn.BatchNorm2d):
-    """Batch norm with flax's arithmetic: (x - mean) * (scale * rsqrt(var +
-    eps)) + bias in f32, result cast back to the input dtype.
+class _BatchNormReLU(nn.BatchNorm2d):
+    """A CompactCNN block's batch norm and the ReLU after it, with flax's
+    arithmetic: relu((x - mean) * (scale * rsqrt(var + eps)) + bias), the
+    norm in f32 and its result cast back to the input dtype before the ReLU.
+
+    Both are the ops of ``ops/norm_act.py``: on the card (a CUDA tensor)
+    the fused kernel family of ``csrc/norm_act.cu``, one ``apply`` pass in
+    eval mode, a statistics pass and the apply pass forward and a reduce and
+    a dx pass backward in train mode (a hand-derived backward, no autograd
+    of f32 intermediates); on the CPU each kernel's plain torch version
+    under the same backward, which the CPU tests hold against the JAX
+    package. Eval mode takes no gradient.
 
     Train mode takes mean and variance over (N, H, W) in f32 with flax
     0.12's fast variance, max(0, E[x^2] - E[x]^2) (biased), and moves the
@@ -60,36 +69,24 @@ class _BatchNorm(nn.BatchNorm2d):
     With ``group`` set (:func:`global_statistics`, data parallelism over
     more than one rank) the moments are those of the global batch, as
     under the reference's ``pjit``: every rank all-reduces its [sum x, sum
-    x^2] through an autograd all-reduce, so the gradient is the
-    global-batch one once the ranks' gradients are averaged, and every
+    x^2], and in the backward its [sum g, sum g * xhat], so the gradient is
+    the global-batch one once the ranks' gradients are averaged, and every
     rank's running statistics stay equal."""
 
     update_stats = True
     group = None  # the data-parallel process group, or None: this batch alone
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
-        if self.training:
-            xf = x.float()
-            if self.group is None:
-                mean = xf.mean(dim=(0, 2, 3))
-                sq = (xf * xf).mean(dim=(0, 2, 3))
-            else:
-                sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
-                                                   (xf * xf).sum(dim=(0, 2, 3))]), self.group)
-                count = xf.numel() // xf.shape[1] * dist.get_world_size(self.group)
-                mean, sq = sums[0] / count, sums[1] / count
-            var = torch.clamp_min(sq - mean * mean, 0.0)
-            if self.update_stats:
-                with torch.no_grad():
-                    m = _BN_MOMENTUM
-                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        if not self.training:
+            return norm_act.norm_relu_eval(x, self.running_mean, self.running_var, self.weight,
+                                           self.bias, self.eps)
+        y, mean, var = norm_act.norm_relu_train(x, self.weight, self.bias, self.eps, self.group)
+        if self.update_stats:
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y
 
 
 @contextlib.contextmanager
@@ -97,7 +94,7 @@ def frozen_statistics(module: nn.Module):
     """Within the block, every batch norm of ``module`` normalizes as before
     but leaves its running statistics alone: the re-run of a checkpointed
     forward, whose first pass already moved them."""
-    norms = [m for m in module.modules() if isinstance(m, _BatchNorm)]
+    norms = [m for m in module.modules() if isinstance(m, _BatchNormReLU)]
     for m in norms:
         m.update_stats = False
     try:
@@ -111,7 +108,7 @@ def frozen_statistics(module: nn.Module):
 def global_statistics(module: nn.Module, group):
     """Within the block, every batch norm of ``module`` takes its train-mode
     moments over ``group``'s global batch (None: each rank's own batch)."""
-    norms = [m for m in module.modules() if isinstance(m, _BatchNorm)]
+    norms = [m for m in module.modules() if isinstance(m, _BatchNormReLU)]
     for m in norms:
         m.group = group
     try:
@@ -150,7 +147,11 @@ class CompactCNN(nn.Module):
     between stages while the map is at least 2x2, global pooling and Dense
     -> embed_dim + ReLU. ``norm`` is "batch" (``bn{stage}_{i}``), "group"
     (min(32, channels) groups, ``gn{stage}_{i}``) or "none" (the conv gets
-    a bias). ``pool="avg"`` with ``global_pool="avg+max"`` is the PANNs
+    a bias). With batch norm the block's norm + ReLU is one
+    ``_BatchNormReLU`` call: on the card the fused kernels of
+    ``csrc/norm_act.cu``, on the CPU their plain torch versions
+    (``ops/norm_act.py``).
+    ``pool="avg"`` with ``global_pool="avg+max"`` is the PANNs
     CNN10/CNN14 block structure. While tracing, each block's norm + ReLU is
     a ``mla.trunk.norm_act`` span (``block``: its index) with device time,
     only on a thread the profiler records: there the trace's timeline and
@@ -177,7 +178,7 @@ class CompactCNN(nn.Module):
                 self.add_module(f"conv{stage}_{i}",
                                 nn.Conv2d(cin, ch, 3, padding=1, bias=norm == "none"))
                 if norm == "batch":
-                    self.add_module(f"bn{stage}_{i}", _BatchNorm(ch, eps=_BN_EPS))
+                    self.add_module(f"bn{stage}_{i}", _BatchNormReLU(ch, eps=_BN_EPS))
                 elif norm == "group":
                     self.add_module(f"gn{stage}_{i}", _GroupNorm(min(32, ch), ch, eps=_GN_EPS))
                 cin = ch
@@ -193,16 +194,17 @@ class CompactCNN(nn.Module):
         for stage in range(len(self.conv_channels)):
             for i in range(self.convs_per_stage):
                 x = _conv3x3(getattr(self, f"conv{stage}_{i}"), x, dt)
-                # the span holds norm and activation together, so it times
-                # the same work once a fused kernel replaces the two
+                # the span holds norm and activation together: on the card
+                # with batch norm, the fused kernels' launches
                 with (profiling.annotate("mla.trunk.norm_act", x.device,
                                          block=stage * self.convs_per_stage + i)
                       if traced else profiling.OFF):
                     if self.norm == "batch":
-                        x = getattr(self, f"bn{stage}_{i}")(x)
+                        x = getattr(self, f"bn{stage}_{i}")(x)  # norm + ReLU
                     elif self.norm == "group":
-                        x = getattr(self, f"gn{stage}_{i}")(x)
-                    x = torch.relu(x)
+                        x = torch.relu(getattr(self, f"gn{stage}_{i}")(x))
+                    else:
+                        x = torch.relu(x)
             if min(x.shape[2], x.shape[3]) >= 2:
                 x = F.avg_pool2d(x, 2, 2) if self.pool == "avg" else F.max_pool2d(x, 2, 2)
         if self.global_pool == "avg+max":

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -30,6 +31,7 @@ NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-march=native", "-shared", "-pthread")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCKS: Dict[str, threading.Lock] = {}  # a build's temporary name is per process, not thread
 
 
 def _nvcc() -> str:
@@ -105,11 +107,13 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    if not library_path(name).exists():
-        compile_library(CSRC / f"{name}.cu", library_path(name))
-    lib = ctypes.CDLL(str(library_path(name)))
-    for fn, argtypes in signatures.items():
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = ctypes.c_int
-    _LOADED[name] = lib
-    return lib
+    with _LOCKS.setdefault(name, threading.Lock()):
+        if name not in _LOADED:
+            if not library_path(name).exists():
+                compile_library(CSRC / f"{name}.cu", library_path(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _LOADED[name] = lib
+        return _LOADED[name]

@@ -12,8 +12,7 @@ no-op, so the same entry point serves one process and many. Besides the
 group it holds the helpers every parallel path shares: the reference's
 ``is_primary`` and ``local_batch_slice`` (by the rank's data coordinate
 when a "model" axis is ``model_parallel`` ranks wide: the ranks of one
-model group hold the same rows), an all-reduce that autograd can pass
-through, and the model axis' four conjugate pairs, each a
+model group hold the same rows) and the model axis' four conjugate pairs, each a
 ``torch.autograd.Function`` whose backward is its forward's transpose:
 
   copy_to_model      identity           | all-reduce
@@ -130,31 +129,6 @@ def local_batch_slice(global_batch: int, model_parallel: int = 1) -> slice:
         raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
     per = global_batch // n
     return slice(i * per, (i + 1) * per)
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group in the forward; the gradient of every rank's
-    copy is the sum of every rank's output gradient, so the backward is the
-    same all-reduce."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
-        return grad, None
-
-
-def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Differentiable sum of ``x`` over ``group`` (None = the default
-    group); a new tensor, ``x`` is left alone."""
-    return _AllReduceSum.apply(x, group)
 
 
 def gather_rows(local: torch.Tensor, rows: slice, global_rows: int, group=None) -> torch.Tensor:

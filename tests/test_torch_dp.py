@@ -29,7 +29,7 @@ from mla_tpu.train import state as jstate  # noqa: E402
 from mla_tpu_torch.config import get_config  # noqa: E402
 from mla_tpu_torch.models.convert import flat_to_state_dict, state_dict_to_flat  # noqa: E402
 from mla_tpu_torch.models.zoo import build_model  # noqa: E402
-from mla_tpu_torch.models.trunk import _BatchNorm  # noqa: E402
+from mla_tpu_torch.models.trunk import _BatchNormReLU  # noqa: E402
 from mla_tpu_torch.train import loop  # noqa: E402
 from mla_tpu_torch.train import state as tstate  # noqa: E402
 from tests.test_torch_augment import _jax_span_draws  # noqa: E402
@@ -179,7 +179,7 @@ def test_batch_norm_takes_the_global_batch_moments(run):
     both ranks' running statistics equal its."""
     spec = run["job"]["bn"]
     x, w = (torch.from_numpy(a) for a in spec["x"])
-    bn = _BatchNorm(4)
+    bn = _BatchNormReLU(4)
     with torch.no_grad():
         bn.weight.copy_(torch.from_numpy(spec["scale"]))
         bn.bias.copy_(torch.from_numpy(spec["bias"]))

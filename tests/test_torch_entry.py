@@ -31,7 +31,7 @@ from mla_tpu_torch.entry import (  # noqa: E402
     flagship_forward,
 )
 from mla_tpu_torch.models.convert import flat_to_state_dict  # noqa: E402
-from mla_tpu_torch.models.trunk import _BatchNorm  # noqa: E402
+from mla_tpu_torch.models.trunk import _BatchNormReLU  # noqa: E402
 from mla_tpu_torch.models.zoo import build_model  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,7 +84,7 @@ def test_flagship_forward_matches_jax_entry_bf16(reference):
     np.testing.assert_array_equal(ours_wav.numpy(), wav)  # the same batch, drawn alike
     norm_inputs = []
     for mod in model.modules():
-        if isinstance(mod, _BatchNorm):
+        if isinstance(mod, _BatchNormReLU):
             mod.register_forward_hook(lambda m, args, out: norm_inputs.append(args[0].dtype))
     probs = ours_fn(model, ours_wav).numpy()
     assert norm_inputs and set(norm_inputs) == {torch.bfloat16}  # the convolutions ran in bf16

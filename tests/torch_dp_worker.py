@@ -31,11 +31,11 @@ CPU = torch.device("cpu")
 def case_bn(job, rank):
     """A batch norm under the group: output, input and parameter gradients
     and running statistics on this rank's rows."""
-    from mla_tpu_torch.models.trunk import _BatchNorm, global_statistics
+    from mla_tpu_torch.models.trunk import _BatchNormReLU, global_statistics
 
     x, w = (torch.from_numpy(a) for a in job["bn"]["x"])
     rows = distributed.local_batch_slice(x.shape[0])
-    bn = _BatchNorm(x.shape[1])
+    bn = _BatchNormReLU(x.shape[1])
     with torch.no_grad():
         bn.weight.copy_(torch.from_numpy(job["bn"]["scale"]))
         bn.bias.copy_(torch.from_numpy(job["bn"]["bias"]))
