@@ -30,13 +30,18 @@ printing its last line:
      adpcm2_wire.npz), the host decoder and a random-bytes wire, both bit
      widths, at the serving and training shapes;
   3b. the batch-norm + ReLU kernels (csrc/norm_act.cu) at the flagship's
-     eight block shapes, tag (1,280 patches, eval: apply) and train (2,560:
-     stats, apply, backward_reduce, backward_dx), channels-last bf16: the
-     elementwise kernels bit-exact against their plain versions, the
-     reductions within 1e-5 of their f64 sums and bit-identical run to run;
-     each timed against its byte bound beside the plain version and
-     F.batch_norm + relu (library_ms); then the launches of a flagship
-     forward (8 apply) and train step (8 of each kernel);
+     eight block shapes, tag (1,280 patches, eval: apply, apply_pool) and
+     train (2,560: stats, apply, backward_reduce, backward_dx and the pooled
+     apply_pool, backward_reduce_pool, backward_dx_pool), channels-last bf16:
+     the elementwise kernels bit-exact against their plain versions (the
+     pooled ones against apply then F.max_pool2d, and dx of the pooled dy
+     routed by the max pool's backward), the reductions within 1e-5 of their
+     f64 sums and bit-identical run to run; each timed against its byte
+     bound beside the plain version and F.batch_norm + relu (+ F.max_pool2d
+     for the pooled ones: library_ms); the eight blocks as the main path
+     runs them (each stage's last pooled); then the launches of a flagship
+     forward (4 apply + 4 apply_pool) and train step (8 stats, 4 of each
+     other kernel and 4 of its pooled version);
   4. the probe entry point (python -m mla_tpu_torch.probe_row_merge): its
      verdict must be "supported", through scale2 and row_merge_bulk;
   5. the serving path at full width: BatchedStreamingServer on the
@@ -292,15 +297,19 @@ NORM_ACT_PATCHES = {"tag": 1280, "train": 2560}
 
 def _norm_act_phase(tag) -> dict:
     """Phase 3b: the batch-norm + ReLU kernels (csrc/norm_act.cu) at the
-    flagship's block shapes, tag (eval: apply) and train (stats, apply,
-    backward_reduce, backward_dx), channels-last bf16 as the convolutions
-    leave them: each against its plain version on the card (the elementwise
-    kernels bit-exact given the same vectors, the reductions within f32
-    summation-order error, and bit-identical from run to run), each timed
-    against its byte bound beside the plain version and F.batch_norm +
-    relu (library_ms: the port never calls it); then the launches of a
-    flagship forward (128 x 10 s) and of a flagship train step (8 blocks:
-    8 apply; 8 stats + 8 apply + 8 backward_reduce + 8 backward_dx)."""
+    flagship's block shapes, tag (eval: apply, apply_pool) and train (stats,
+    apply, backward_reduce, backward_dx and their pooled versions),
+    channels-last bf16 as the convolutions leave them: each against its
+    plain version on the card (the elementwise kernels bit-exact given the
+    same vectors, apply_pool against apply then F.max_pool2d, the reductions
+    within f32 summation-order error, and bit-identical from run to run),
+    each timed against its byte bound beside the plain version and
+    F.batch_norm + relu, + F.max_pool2d for the pooled kernels (library_ms:
+    the port never calls it); the eight blocks' sums as the main path runs
+    them (each stage's second block pooled); then the launches of a
+    flagship forward (128 x 10 s: 4 apply + 4 apply_pool) and of a flagship
+    train step (8 stats; 4 each of apply, backward_reduce, backward_dx and
+    of their pooled versions)."""
     import torch.nn.functional as F
 
     from mla_tpu_torch.entry import flagship_config, flagship_forward
@@ -326,16 +335,27 @@ def _norm_act_phase(tag) -> dict:
             scale = rstd * weight
             r = {"bytes": {k: na.bytes_moved(x, k) for k in na.LAUNCHES}}
             r["bound_ms"] = {k: b / PEAK_BYTES * 1e3 for k, b in r["bytes"].items()}
-            # the elementwise kernels equal their plain versions bit for bit
+            # the elementwise kernels equal their plain versions bit for bit,
+            # apply_pool the library's max pool of apply's output too
             y = ops.norm_act_apply(x, mean, scale, bias)
-            if not torch.equal(y, na.apply_reference(x, mean, scale, bias)):
-                raise RuntimeError(f"norm_act apply at {key} is not bit-exact against the plain "
-                                   f"version")
-            r["ms"] = {"apply": device_median_ms(lambda: ops.norm_act_apply(x, mean, scale, bias))}
+            yp = ops.norm_act_apply_pool(x, mean, scale, bias)
+            if not (torch.equal(y, na.apply_reference(x, mean, scale, bias))
+                    and torch.equal(yp, F.max_pool2d(y, 2, 2))
+                    and torch.equal(yp, na.apply_pool_reference(x, mean, scale, bias))):
+                raise RuntimeError(f"norm_act apply / apply_pool at {key} is not bit-exact "
+                                   f"against the plain version")
+            r["ms"] = {"apply": device_median_ms(lambda: ops.norm_act_apply(x, mean, scale, bias)),
+                       "apply_pool": device_median_ms(
+                           lambda: ops.norm_act_apply_pool(x, mean, scale, bias))}
             r["plain_ms"] = {"apply": device_median_ms(
-                lambda: na.apply_reference(x, mean, scale, bias), reps=5, inner=2)}
+                lambda: na.apply_reference(x, mean, scale, bias), reps=5, inner=2),
+                "apply_pool": device_median_ms(
+                lambda: na.apply_pool_reference(x, mean, scale, bias), reps=5, inner=2)}
             r["library_ms"] = {"apply": device_median_ms(
                 lambda: torch.relu(F.batch_norm(x, mean, var, weight, bias, False, 0.0, 1e-5)),
+                reps=5, inner=2), "apply_pool": device_median_ms(
+                lambda: F.max_pool2d(torch.relu(
+                    F.batch_norm(x, mean, var, weight, bias, False, 0.0, 1e-5)), 2, 2),
                 reps=5, inner=2)}
             if size == "train":
                 dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -369,21 +389,50 @@ def _norm_act_phase(tag) -> dict:
                 dx = ops.norm_act_backward_dx(dy, x, mean, rstd, scale, bias, cb, cc)
                 dx_exact = torch.equal(dx, na.backward_dx_reference(dy, x, mean, rstd, scale,
                                                                      bias, cb, cc))
+                # the pooled backward: dy at the pooled size, against the
+                # unpooled kernels' plain versions of dy routed by the max
+                # pool's own backward
+                dyp = torch.randn((patches, c, h // 2, w // 2), generator=gen, device="cuda")
+                dyp = dyp.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                routed = na._route(dyp, x, mean, scale, bias)
+                g, xhat = na._gate_and_xhat(routed, x, mean, rstd, scale, bias)
+                gd, gxd = g.double(), (g * xhat).double()
+                pexact = torch.stack([gd.sum(dim=(0, 2, 3)), gxd.sum(dim=(0, 2, 3))])
+                pmag = torch.stack([gd.abs().sum(dim=(0, 2, 3)), gxd.abs().sum(dim=(0, 2, 3))])
+                del g, xhat, gd, gxd
+                psums = ops.norm_act_backward_reduce_pool(dyp, x, mean, rstd, scale, bias)
+                errs["backward_reduce_pool"] = sum_err(psums, pexact, pmag)
+                repeat = repeat and torch.equal(
+                    psums, ops.norm_act_backward_reduce_pool(dyp, x, mean, rstd, scale, bias))
+                dx_exact = dx_exact and torch.equal(
+                    ops.norm_act_backward_dx_pool(dyp, x, mean, rstd, scale, bias, cb, cc),
+                    na.backward_dx_reference(routed, x, mean, rstd, scale, bias, cb, cc))
+                del routed
                 r.update(sum_err=errs, repeats_bit_for_bit=repeat, dx_bit_exact=dx_exact)
-                if max(errs["stats"], errs["backward_reduce"]) > 1e-5 or not repeat or not dx_exact:
+                if (max(errs["stats"], errs["backward_reduce"], errs["backward_reduce_pool"])
+                        > 1e-5 or not repeat or not dx_exact):
                     raise RuntimeError(f"norm_act train kernels at {key}: {r}")
                 r["ms"].update(
                     stats=device_median_ms(lambda: ops.norm_act_stats(x)),
                     backward_reduce=device_median_ms(
                         lambda: ops.norm_act_backward_reduce(dy, x, mean, rstd, scale, bias)),
                     backward_dx=device_median_ms(
-                        lambda: ops.norm_act_backward_dx(dy, x, mean, rstd, scale, bias, cb, cc)))
+                        lambda: ops.norm_act_backward_dx(dy, x, mean, rstd, scale, bias, cb, cc)),
+                    backward_reduce_pool=device_median_ms(
+                        lambda: ops.norm_act_backward_reduce_pool(dyp, x, mean, rstd, scale, bias)),
+                    backward_dx_pool=device_median_ms(
+                        lambda: ops.norm_act_backward_dx_pool(dyp, x, mean, rstd, scale, bias, cb,
+                                                              cc)))
                 r["plain_ms"].update(
                     stats=device_median_ms(lambda: na.stats_reference(x), reps=5, inner=2),
                     backward_reduce=device_median_ms(lambda: na.backward_reduce_reference(
                         dy, x, mean, rstd, scale, bias), reps=5, inner=2),
                     backward_dx=device_median_ms(lambda: na.backward_dx_reference(
-                        dy, x, mean, rstd, scale, bias, cb, cc), reps=5, inner=2))
+                        dy, x, mean, rstd, scale, bias, cb, cc), reps=5, inner=2),
+                    backward_reduce_pool=device_median_ms(lambda: na.backward_reduce_pool_reference(
+                        dyp, x, mean, rstd, scale, bias), reps=5, inner=2),
+                    backward_dx_pool=device_median_ms(lambda: na.backward_dx_pool_reference(
+                        dyp, x, mean, rstd, scale, bias, cb, cc), reps=5, inner=2))
                 # the train block, forward and forward + backward: the fused op
                 # against F.batch_norm + relu in train mode
                 xg = x.detach().requires_grad_(True)
@@ -397,10 +446,23 @@ def _norm_act_phase(tag) -> dict:
                     out = torch.relu(F.batch_norm(xg, None, None, wg, bg, True, 0.0, 1e-5))
                     out.backward(dy)
 
+                def fused_pool_step():
+                    out = na.norm_relu_train(xg, wg, bg, 1e-5, pool=True)[0]
+                    out.backward(dyp)
+
+                def library_pool_step():
+                    out = F.max_pool2d(torch.relu(
+                        F.batch_norm(xg, None, None, wg, bg, True, 0.0, 1e-5)), 2, 2)
+                    out.backward(dyp)
+
                 r["ms"]["train_forward_backward"] = device_median_ms(fused_step, reps=5, inner=2)
                 r["library_ms"]["train_forward_backward"] = device_median_ms(
                     library_step, reps=5, inner=2)
-                del dy, xg, wg, bg
+                r["ms"]["train_forward_backward_pool"] = device_median_ms(
+                    fused_pool_step, reps=5, inner=2)
+                r["library_ms"]["train_forward_backward_pool"] = device_median_ms(
+                    library_pool_step, reps=5, inner=2)
+                del dy, dyp, xg, wg, bg
             r["roofline"] = {k: r["bound_ms"][k] / ms for k, ms in r["ms"].items()
                              if k in r["bound_ms"]}
             rec["shapes"][key] = r
@@ -409,7 +471,7 @@ def _norm_act_phase(tag) -> dict:
                   f"the byte bound {json.dumps({k: round(v, 4) for k, v in r['roofline'].items()})}"
                   f"; plain ms {json.dumps(r['plain_ms'])}; library ms "
                   f"{json.dumps(r['library_ms'])} {tag}")
-            del x, y
+            del x, y, yp
             torch.cuda.empty_cache()
     # the eight blocks of a tag forward: apply against its bound, in all
     blocks = {size: [rec["shapes"][f"{size} [{p}, {c}, {h}, {w}]"] for h, w, c in NORM_ACT_BLOCKS]
@@ -423,6 +485,18 @@ def _norm_act_phase(tag) -> dict:
             "library_ms": {k: sum(r["library_ms"][k] for r in rs) for k in rs[0]["library_ms"]},
             "roofline": {k: bound[k] / tot[k] for k in tot}}
         print(f"norm_act, the eight blocks of a {size} step: {json.dumps(eight)} {tag}")
+        # as the main path runs them: each stage's second block pooled
+        main = {"ms": {}, "bound_ms": {}}
+        for b, r in enumerate(rs):
+            for k in ("apply", "stats", "backward_reduce", "backward_dx"):
+                run = f"{k}_pool" if b % 2 and k != "stats" else k
+                if run in r["ms"]:
+                    for field in ("ms", "bound_ms"):
+                        main[field][k] = main[field].get(k, 0.0) + r[field][run]
+        main["roofline"] = {k: main["bound_ms"][k] / main["ms"][k] for k in main["ms"]}
+        rec[f"{size}_main_path"] = main
+        print(f"norm_act, the eight blocks as the main path runs them ({size}): "
+              f"{json.dumps(main)} {tag}")
 
     # the main path's launches: a flagship forward at 128 x 10 s, a train step
     cfg = flagship_config()
@@ -447,8 +521,9 @@ def _norm_act_phase(tag) -> dict:
     rec["launches"] = {"flagship_forward": fwd, "flagship_train_step": train}
     print(f"norm_act launches: flagship forward {fwd}; flagship train step {train} (loss "
           f"{loss:.6f})")
-    want_fwd = {"apply": 8, "stats": 0, "backward_reduce": 0, "backward_dx": 0}
-    want_train = {"apply": 8, "stats": 8, "backward_reduce": 8, "backward_dx": 8}
+    want_fwd = {**dict.fromkeys(na.LAUNCHES, 0), "apply": 4, "apply_pool": 4}
+    want_train = {"apply": 4, "stats": 8, "backward_reduce": 4, "backward_dx": 4,
+                  "apply_pool": 4, "backward_reduce_pool": 4, "backward_dx_pool": 4}
     if fwd != want_fwd or train != want_train or not np.isfinite(loss):
         raise RuntimeError(f"norm_act launches on the main path: forward {fwd} (want {want_fwd}),"
                            f" train step {train} (want {want_train}), loss {loss}")
@@ -4093,6 +4168,7 @@ def main() -> int:
         "library_call": "torch.relu(F.batch_norm(x, ...))",
         "site": "apply, the eight blocks of a tag forward (1,280 patches)",
         "train": na_train,
+        "main_path": {"tag": na_rec["tag_main_path"], "train": na_rec["train_main_path"]},
         "by_shape": na_rec["shapes"],
     })
     for k, line in (("scale2", 33), ("row_merge", 28)):

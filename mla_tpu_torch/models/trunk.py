@@ -56,7 +56,11 @@ class _BatchNormReLU(nn.BatchNorm2d):
     a dx pass backward in train mode (a hand-derived backward, no autograd
     of f32 intermediates); on the CPU each kernel's plain torch version
     under the same backward, which the CPU tests hold against the JAX
-    package. Eval mode takes no gradient.
+    package. Eval mode takes no gradient. With ``pool`` (a stage's last
+    block, whose 2x2 max pool follows) the block returns that pool of its
+    output through the pooled kernels (``apply_pool``; in train mode
+    ``backward_reduce_pool`` + ``backward_dx_pool`` backward), which neither
+    write nor keep the full-size map.
 
     Train mode takes mean and variance over (N, H, W) in f32 with flax
     0.12's fast variance, max(0, E[x^2] - E[x]^2) (biased), and moves the
@@ -76,11 +80,12 @@ class _BatchNormReLU(nn.BatchNorm2d):
     update_stats = True
     group = None  # the data-parallel process group, or None: this batch alone
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
         if not self.training:
             return norm_act.norm_relu_eval(x, self.running_mean, self.running_var, self.weight,
-                                           self.bias, self.eps)
-        y, mean, var = norm_act.norm_relu_train(x, self.weight, self.bias, self.eps, self.group)
+                                           self.bias, self.eps, pool)
+        y, mean, var = norm_act.norm_relu_train(x, self.weight, self.bias, self.eps, self.group,
+                                                pool)
         if self.update_stats:
             with torch.no_grad():
                 m = _BN_MOMENTUM
@@ -150,10 +155,12 @@ class CompactCNN(nn.Module):
     a bias). With batch norm the block's norm + ReLU is one
     ``_BatchNormReLU`` call: on the card the fused kernels of
     ``csrc/norm_act.cu``, on the CPU their plain torch versions
-    (``ops/norm_act.py``).
+    (``ops/norm_act.py``); with max pools a stage's last such call also
+    takes the stage's pool.
     ``pool="avg"`` with ``global_pool="avg+max"`` is the PANNs
     CNN10/CNN14 block structure. While tracing, each block's norm + ReLU is
-    a ``mla.trunk.norm_act`` span (``block``: its index) with device time,
+    a ``mla.trunk.norm_act`` span (``block``: its index; ``pool`` 1 where it
+    holds the stage's max pool too) with device time,
     only on a thread the profiler records: there the trace's timeline and
     the norm + activation share read it; a thread it leaves out (the tick
     thread) pays nothing a block."""
@@ -192,20 +199,26 @@ class CompactCNN(nn.Module):
         x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> NCHW
         traced = profiling.recorded()
         for stage in range(len(self.conv_channels)):
+            pooled = False
             for i in range(self.convs_per_stage):
                 x = _conv3x3(getattr(self, f"conv{stage}_{i}"), x, dt)
-                # the span holds norm and activation together: on the card
-                # with batch norm, the fused kernels' launches
+                # a stage's last batch norm + ReLU takes its max pool in
+                pooled = (self.norm == "batch" and self.pool == "max"
+                          and i == self.convs_per_stage - 1 and min(x.shape[2], x.shape[3]) >= 2)
+                # the span holds norm and activation together (and pooled,
+                # the pool): on the card with batch norm, the fused kernels'
+                # launches
                 with (profiling.annotate("mla.trunk.norm_act", x.device,
-                                         block=stage * self.convs_per_stage + i)
+                                         block=stage * self.convs_per_stage + i,
+                                         **({"pool": 1} if pooled else {}))
                       if traced else profiling.OFF):
                     if self.norm == "batch":
-                        x = getattr(self, f"bn{stage}_{i}")(x)  # norm + ReLU
+                        x = getattr(self, f"bn{stage}_{i}")(x, pooled)  # norm + ReLU (+ pool)
                     elif self.norm == "group":
                         x = torch.relu(getattr(self, f"gn{stage}_{i}")(x))
                     else:
                         x = torch.relu(x)
-            if min(x.shape[2], x.shape[3]) >= 2:
+            if not pooled and min(x.shape[2], x.shape[3]) >= 2:
                 x = F.avg_pool2d(x, 2, 2) if self.pool == "avg" else F.max_pool2d(x, 2, 2)
         if self.global_pool == "avg+max":
             x = x.mean(dim=(2, 3)) + x.amax(dim=(2, 3))

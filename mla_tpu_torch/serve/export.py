@@ -24,9 +24,10 @@ hand-written decode kernel). Then the torch-ops front-end
 (``ops.frontend.waveform_to_patches``, whatever ``frontend.impl`` says, as
 the reference's exporter does) and the model in eval mode, cast to float32;
 a program exported on the card calls each CompactCNN block's batch norm +
-ReLU as the registered op ``torch.ops.mla_tpu_torch.norm_act_apply``
-(``ops/norm_act.py``: the fused kernel on a card, its plain version on the
-CPU).
+ReLU as the registered op ``torch.ops.mla_tpu_torch.norm_act_apply``, and
+with max pools a stage's last one, pool included, as ``norm_act_apply_pool``
+(``ops/norm_act.py``: the fused kernels on a card, their plain versions on
+the CPU).
 
 The loaders take ``device=None`` (the card; raises without one unless
 device="cpu") and move a program exported on another device with
@@ -51,7 +52,7 @@ from mla_tpu_torch.data import adpcm as _ad
 from mla_tpu_torch.data.audio_io import mulaw_decode
 from mla_tpu_torch.ops import attention_pool as ap
 from mla_tpu_torch.ops import frontend as fe
-from mla_tpu_torch.ops import norm_act  # noqa: F401 (registers norm_act_apply for loaders)
+from mla_tpu_torch.ops import norm_act  # noqa: F401 (registers the norm_act ops for loaders)
 from mla_tpu_torch.ops.adpcm import adpcm_decode
 
 MAGIC = b"MLXT1\n"

@@ -5,10 +5,13 @@ formula the CUDA kernels compute) against autograd of the torch ops the
 module ran before the fused kernels, which the JAX package's batch norm
 matches; the running statistics, ``frozen_statistics``, eval mode's lack of
 a gradient, the checks on layout and type, the ops' fake implementations and
-an export of the eval op. On the card (skipped without one): the kernels
-against the plain version, bit-for-bit repeats, a one-rank group, the
-launches of a flagship forward and train step, and an exported eval model.
-No JAX here: the card's machine runs this file too."""
+an export of the eval op; the pooled block (a stage's last, with its 2x2 max
+pool) against autograd of the unpooled block then ``F.max_pool2d``, and which
+trunks take it. On the card (skipped without one): the kernels against the
+plain version, the pooled kernels against the unpooled ones then the
+library's max pool, bit-for-bit repeats, a one-rank group, the launches of a
+flagship forward and train step and their kernels, and an exported eval
+model. No JAX here: the card's machine runs this file too."""
 
 import sys
 
@@ -17,13 +20,19 @@ sys.modules["conftest"].QUICK_MODULES.add(__name__.rsplit(".", 1)[-1])
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from mla_tpu_torch.models.trunk import (  # noqa: E402
-    _BN_MOMENTUM, _BatchNormReLU, frozen_statistics)
+    _BN_MOMENTUM, CompactCNN, _BatchNormReLU, frozen_statistics)
 from mla_tpu_torch.ops import norm_act as na  # noqa: E402
 
 WIDTHS = [64, 128, 256, 512]
 DTYPES = [torch.float32, torch.bfloat16]
+# (h, w) of a pooled block's map: even, and odd in both (floor mode leaves
+# the last row and column unpooled)
+POOL_MAPS = [(8, 4), (7, 5)]
+POOL_KINDS = ("apply_pool", "backward_reduce_pool", "backward_dx_pool")
 # dx in the working type: f32 to rounding of a sum of a few hundred terms;
 # bf16 to one unit in its last place (2^-8 of the value) plus that
 DX_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
@@ -42,6 +51,18 @@ def _input(c, dtype, channels_last, n=4, h=8, w=4, seed=0, exact=True):
     v[:, 0] = 0.75
     x = torch.from_numpy(v.astype(np.float32)).to(dtype)
     return x.contiguous(memory_format=torch.channels_last) if channels_last else x
+
+
+def _plant_ties(x):
+    """x with the top row of windows made of positive-leaning ties: in
+    channels 1.. (channel 0 stays constant) each window's top right equals
+    its top left and its bottom row lies 1 below, so the top two tie for
+    the max and the first must take the gradient."""
+    x = x.clone()
+    wp = x.shape[3] // 2 * 2
+    x[:, 1:, 0, 1:wp:2] = x[:, 1:, 0, 0:wp:2]
+    x[:, 1:, 1, :wp] = x[:, 1:, 0, :wp] - 1
+    return x
 
 
 def _module(c, seed=1):
@@ -212,11 +233,26 @@ def test_registered_ops_and_their_fake_implementations(channels_last):
     torch.library.opcheck(ops.norm_act_stats, (x,))
     torch.library.opcheck(ops.norm_act_backward_reduce, (dy, x, *v[:4]))
     torch.library.opcheck(ops.norm_act_backward_dx, (dy, x, *v))
+    for h, w in POOL_MAPS:
+        xp = _input(64, torch.bfloat16, channels_last, h=h, w=w)
+        dyp = _input(64, torch.bfloat16, channels_last, h=h // 2, w=w // 2, seed=5)
+        torch.library.opcheck(ops.norm_act_apply_pool, (xp, v[0], v[1], v[2]))
+        torch.library.opcheck(ops.norm_act_backward_reduce_pool, (dyp, xp, *v[:4]))
+        torch.library.opcheck(ops.norm_act_backward_dx_pool, (dyp, xp, *v))
+        # the fake implementations give the pooled shapes in x's layout
+        xm, dym, vm = xp.to("meta"), dyp.to("meta"), [t.to("meta") for t in v]
+        y = ops.norm_act_apply_pool(xm, vm[0], vm[1], vm[2])
+        assert y.shape == (4, 64, h // 2, w // 2)
+        assert y.is_contiguous(memory_format=torch.channels_last) == channels_last
+        assert ops.norm_act_backward_reduce_pool(dym, xm, *vm[:4]).shape == (2, 64)
+        assert ops.norm_act_backward_dx_pool(dym, xm, *vm).shape == xp.shape
 
 
-def test_exported_eval_op_is_one_node_and_runs():
-    """torch.export records the eval block as the registered op, and the
-    exported program gives the eager result."""
+@pytest.mark.parametrize("pool", [False, True])
+def test_exported_eval_op_is_one_node_and_runs(pool):
+    """torch.export records the eval block as the registered op (pooled: the
+    pooled op, and no max pool), and the exported program gives the eager
+    result."""
 
     class Block(torch.nn.Module):
         def __init__(self):
@@ -225,14 +261,110 @@ def test_exported_eval_op_is_one_node_and_runs():
 
         def forward(self, x):
             b = self.bn
-            return na.norm_relu_eval(x, b.running_mean, b.running_var, b.weight, b.bias, b.eps)
+            return na.norm_relu_eval(x, b.running_mean, b.running_var, b.weight, b.bias, b.eps,
+                                     pool)
 
-    block, x = Block(), _input(64, torch.float32, True, exact=False)
+    block, x = Block(), _input(64, torch.float32, True, h=7, exact=False)
+    op = "norm_act_apply_pool" if pool else "norm_act_apply"
     with torch.no_grad():
         prog = torch.export.export(block, (x,))
-        targets = [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
-        assert sum("norm_act_apply" in t for t in targets) == 1
-        assert torch.equal(prog.module()(x), block(x))
+        targets = [str(n.target).split(".")[-2 if "." in str(n.target) else -1]
+                   for n in prog.graph.nodes if n.op == "call_function"]
+        assert targets.count(op) == 1 and not any("max_pool" in t for t in targets)
+        got = prog.module()(x)
+        assert got.shape == ((4, 64, 3, 2) if pool else x.shape)
+        assert torch.equal(got, block(x))
+
+
+@pytest.mark.parametrize("shape", POOL_MAPS)
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pooled_block_matches_autograd_of_block_then_max_pool(dtype, channels_last, shape):
+    """A stage's last block with its max pool (the pooled ops' plain versions
+    under the hand-derived backward) against autograd of the torch ops then
+    F.max_pool2d: eval and train outputs bit for bit, dx, dgamma and dbeta,
+    with an odd map and with planted ties, whose gradient goes to the first
+    maximum of the window; the pooled ops equal their composition; no
+    launch."""
+    h, w = shape
+    x = _plant_ties(_input(64, dtype, channels_last, h=h, w=w))
+    bn = _module(64)
+    before = dict(na.LAUNCHES)
+    ops = torch.ops.mla_tpu_torch
+    v = [torch.rand(64, generator=torch.Generator().manual_seed(k)) + 0.5 for k in range(6)]
+    y = ops.norm_act_apply_pool(x, v[0], v[1], v[2])
+    assert torch.equal(y, F.max_pool2d(na.apply_reference(x, v[0], v[1], v[2]), 2, 2))
+    assert y.shape == (4, 64, h // 2, w // 2) and y.dtype == dtype
+    assert y.is_contiguous(memory_format=torch.channels_last) == channels_last
+    with torch.no_grad():
+        assert torch.equal(bn.eval()(x, True), F.max_pool2d(bn(x), 2, 2))
+
+    bn.train()
+    cot = torch.from_numpy(np.random.default_rng(2).standard_normal(y.shape).astype(np.float32))
+    xa = x.clone().requires_grad_(True)
+    wa = bn.weight.detach().clone().requires_grad_(True)
+    ba = bn.bias.detach().clone().requires_grad_(True)
+    ya = F.max_pool2d(_autograd_batch_norm_relu(xa, wa, ba, bn.eps), 2, 2)
+    (ya.float() * cot).sum().backward()
+    xb = x.clone().requires_grad_(True)
+    yb = bn(xb, True)
+    (yb.float() * cot).sum().backward()
+    assert torch.equal(ya, yb) and yb.dtype == dtype
+    _close(xb.grad, xa.grad, DX_RTOL[dtype])
+    _close(bn.weight.grad, wa.grad, 1e-5)
+    _close(bn.bias.grad, ba.grad, 1e-5)
+    # the routed gradient of the planted ties goes to the first of each tied
+    # pair, never the second; some pairs are positive, so [y > 0] passes it on
+    y_full, mean, var = na.norm_relu_train(x, wa.detach(), ba.detach(), bn.eps)
+    rstd = torch.rsqrt(var + bn.eps)
+    scale = rstd * wa.detach()
+    dy = cot.to(dtype).contiguous(memory_format=na._format(not channels_last))
+    routed = na._route(dy, x, mean, scale, ba.detach())
+    wp = w // 2 * 2
+    first, second = routed[:, 1:, 0, 0:wp:2], routed[:, 1:, 0, 1:wp:2]
+    positive = y_full[:, 1:, 0, 0:wp:2] > 0
+    assert bool(positive.any())
+    assert torch.equal(first, dy[:, 1:, 0])
+    assert not bool(second.any())
+    assert na.LAUNCHES == before
+
+
+class _Ops(TorchDispatchMode):
+    """The names of the ops a block of code dispatches."""
+
+    def __enter__(self):
+        self.names = []
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.__name__.split(".")[0])
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("norm, pool, fused", [("batch", "max", 2), ("batch", "avg", 0),
+                                               ("group", "max", 0), ("none", "max", 0)])
+def test_trunk_takes_the_pooled_block_only_for_batch_norm_and_max_pools(norm, pool, fused):
+    """CompactCNN gives each stage's last batch norm + ReLU the stage's max
+    pool (eval and train, forward and backward) where its map is at least
+    2 x 2; average pools, group norm and no norm keep their own pool."""
+    trunk = CompactCNN(conv_channels=(8, 16, 16), convs_per_stage=2, embed_dim=8, norm=norm,
+                       pool=pool, dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 8, 6)).astype(np.float32))
+    with torch.no_grad(), _Ops() as seen:
+        trunk.eval()(x)
+    names = seen.names
+    # maps 8 x 6 -> 4 x 3 -> 2 x 1: the last stage's map is too small to pool
+    assert names.count("norm_act_apply_pool") == fused
+    assert names.count("max_pool2d") + names.count("max_pool2d_with_indices") == (
+        2 if pool == "max" and not fused else 0)
+    trunk.train()
+    with _Ops() as seen:
+        trunk(x).sum().backward()
+    names = seen.names
+    assert names.count("norm_act_apply_pool") == fused
+    assert names.count("norm_act_backward_reduce_pool") == fused
+    assert names.count("norm_act_backward_dx_pool") == fused
+    assert names.count("norm_act_apply") == (6 - fused if norm == "batch" else 0)
 
 
 # ---- on the card ----
@@ -272,7 +404,8 @@ def test_kernels_match_plain_version_on_the_card(cuda, dtype, channels_last, c):
     (yb.float() * cot.to(cuda)).sum().backward()
     torch.cuda.synchronize()
     after = {k: na.LAUNCHES[k] - before[k] for k in na.LAUNCHES}  # eval's apply too
-    assert after == {"apply": 2, "stats": 1, "backward_reduce": 1, "backward_dx": 1}
+    assert after == {**dict.fromkeys(na.LAUNCHES, 0), "apply": 2, "stats": 1,
+                     "backward_reduce": 1, "backward_dx": 1}
     _close(yb.cpu(), ya.detach(), 1e-5 if dtype == torch.float32 else 2 ** -7)
     _close(xb.grad.cpu(), xa.grad, 1e-4 if dtype == torch.float32 else 2 ** -6)
     _close(card.weight.grad.cpu(), cpu.weight.grad, 1e-4)
@@ -320,6 +453,100 @@ def test_other_shapes_on_the_card(cuda, case):
         _close(card.eval()(xc).cpu(), cpu.eval()(x), 1e-6 if dtype == torch.float32 else 2 ** -7)
 
 
+# (dtype, channels-last, (h, w), C, unaligned): 16-byte loads in both layouts
+# and both types; odd maps (one element a load in NCHW); NCHW rows of 12
+# (not 2V columns: one element a load); a row of 3 threads; a row wider than
+# a block; a view one element into its buffer
+BF, F32 = torch.bfloat16, torch.float32
+POOL_CASES = [(BF, True, (16, 8), 64, False), (BF, False, (16, 16), 64, False),
+              (F32, True, (16, 8), 64, False), (F32, False, (16, 8), 64, False),
+              (BF, True, (15, 9), 64, False), (BF, False, (15, 9), 64, False),
+              (BF, False, (8, 12), 64, False), (F32, True, (7, 5), 12, False),
+              (BF, True, (6, 4), 4096, False), (BF, True, (8, 4), 64, True)]
+
+
+def _plant_nans(x):
+    """x with NaN in the second and fourth element of a few windows (the
+    last NaN of a window is the one F.max_pool2d picks)."""
+    x = x.clone()
+    x[0, 1, 0, 1] = x[0, 1, 1, 1] = x[1, 2, 2, 3] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("case", POOL_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_pooled_kernels_match_plain_version_on_the_card(cuda, case):
+    """The pooled kernels against the unpooled ones then the library's
+    F.max_pool2d on the card: eval and the train forward bit for bit (NaN
+    too), dx, dgamma and dbeta within the unpooled kernels' tolerances; and
+    each kernel against its plain version given the same vectors: apply_pool
+    and dx_pool bit-exact (ties and NaN planted), reduce_pool within f32
+    summation-order error; one launch of each."""
+    dtype, cl, (h, w), c, unaligned = case
+    x = _plant_ties(_input(c, dtype, cl, n=8, h=h, w=w, exact=False)).to(cuda)
+    if unaligned:
+        x = _offset_channels_last(x)
+    two_loads = 32 // x.element_size()  # NCHW: the columns of a window pair's loads
+    assert (na._vec(x, not cl, pool=True) == 1) == (unaligned or (not cl and w % two_loads != 0))
+    bn = _module(c).to(cuda)
+    ops = torch.ops.mla_tpu_torch
+    before = dict(na.LAUNCHES)
+    with torch.no_grad():
+        bn.eval()
+        got = bn(x, True)
+        assert {k: na.LAUNCHES[k] - before[k] for k in na.LAUNCHES} == {
+            **dict.fromkeys(na.LAUNCHES, 0), "apply_pool": 1}
+        assert torch.equal(got, F.max_pool2d(bn(x), 2, 2))
+        assert got.is_contiguous(memory_format=torch.channels_last) == cl
+        xn = _plant_nans(x)
+        torch.testing.assert_close(bn(xn, True), F.max_pool2d(bn(xn), 2, 2), rtol=0, atol=0,
+                                   equal_nan=True)
+    bn.train()
+    cot = torch.randn((8, c, h // 2, w // 2), device=cuda)
+    xa, xb = x.detach().clone().requires_grad_(True), x.detach().clone().requires_grad_(True)
+    wa = bn.weight.detach().clone().requires_grad_(True)
+    ba = bn.bias.detach().clone().requires_grad_(True)
+    wb = bn.weight.detach().clone().requires_grad_(True)
+    bb = bn.bias.detach().clone().requires_grad_(True)
+    before = dict(na.LAUNCHES)
+    yb, mean_b, var_b = na.norm_relu_train(xb, wb, bb, bn.eps, pool=True)
+    (yb.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: na.LAUNCHES[k] - before[k] for k in na.LAUNCHES} == {
+        **dict.fromkeys(na.LAUNCHES, 0), "stats": 1, "apply_pool": 1, "backward_reduce_pool": 1,
+        "backward_dx_pool": 1}
+    yf, mean, var = na.norm_relu_train(xa, wa, ba, bn.eps)
+    ya = F.max_pool2d(yf, 2, 2)
+    assert torch.equal(ya, yb) and torch.equal(mean, mean_b) and torch.equal(var, var_b)
+    (ya.float() * cot).sum().backward()
+    _close(xb.grad, xa.grad, 1e-4 if dtype == torch.float32 else 2 ** -6)
+    _close(wb.grad, wa.grad, 1e-4)
+    _close(bb.grad, ba.grad, 1e-4)
+
+    # each kernel against its plain version on the card, given the same vectors
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mean = torch.randn(c, generator=gen, device=cuda) * 0.1
+    rstd = torch.rand(c, generator=gen, device=cuda) + 0.5
+    scale = rstd * (torch.rand(c, generator=gen, device=cuda) + 0.5)
+    shift = torch.randn(c, generator=gen, device=cuda) * 0.5
+    cb, cc = torch.randn(c, generator=gen, device=cuda), torch.randn(c, generator=gen, device=cuda)
+    xn = _plant_nans(x)
+    dy = cot.to(dtype).contiguous(memory_format=na._format(not cl))
+    torch.testing.assert_close(ops.norm_act_apply_pool(xn, mean, scale, shift),
+                               na.apply_pool_reference(xn, mean, scale, shift), rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(ops.norm_act_backward_dx_pool(dy, xn, mean, rstd, scale, shift,
+                                                             cb, cc),
+                               na.backward_dx_pool_reference(dy, xn, mean, rstd, scale, shift,
+                                                             cb, cc),
+                               rtol=0, atol=0, equal_nan=True)
+    routed = na._route(dy, x, mean, scale, shift)
+    g, xhat = na._gate_and_xhat(routed, x, mean, rstd, scale, shift)
+    mag = torch.stack([g.abs().sum(dim=(0, 2, 3)), (g * xhat).abs().sum(dim=(0, 2, 3))])
+    got = ops.norm_act_backward_reduce_pool(dy, x, mean, rstd, scale, shift)
+    want = na.backward_reduce_reference(routed, x, mean, rstd, scale, shift)
+    assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all()), float((got - want).abs().max())
+
+
 def test_eval_mode_takes_no_gradient_on_the_card(cuda):
     """On the card too, a backward through eval mode raises, after the one
     apply launch of its forward."""
@@ -328,25 +555,27 @@ def test_eval_mode_takes_no_gradient_on_the_card(cuda):
     before = dict(na.LAUNCHES)
     y = bn(x)
     assert {k: na.LAUNCHES[k] - before[k] for k in na.LAUNCHES} == {
-        "apply": 1, "stats": 0, "backward_reduce": 0, "backward_dx": 0}
+        **dict.fromkeys(na.LAUNCHES, 0), "apply": 1}
     with pytest.raises(RuntimeError, match="eval mode"):
         y.float().sum().backward()
 
 
-def test_kernels_repeat_bit_for_bit_on_the_card(cuda):
-    """Two runs of the train forward and backward give the same bits (no
-    float atomics), on an activation large enough for many blocks."""
+@pytest.mark.parametrize("pool", [False, True])
+def test_kernels_repeat_bit_for_bit_on_the_card(cuda, pool):
+    """Two runs of the train forward and backward (pooled: the pooled
+    kernels) give the same bits (no float atomics), on an activation large
+    enough for many blocks."""
     x = _input(64, torch.bfloat16, True, n=64, h=96, w=64, exact=False).to(cuda)
     x = x.contiguous(memory_format=torch.channels_last)
-    dy = torch.randn(x.shape, device=cuda).to(torch.bfloat16)
-    dy = dy.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape[:2] + ((48, 32) if pool else x.shape[2:]), device=cuda)
+    dy = dy.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     bn = _module(64).to(cuda)
     runs = []
     for _ in range(2):
         xg = x.clone().requires_grad_(True)
         w, b = bn.weight.detach().clone().requires_grad_(True), bn.bias.detach().clone()
         b.requires_grad_(True)
-        y, mean, var = na.norm_relu_train(xg, w, b, 1e-5)
+        y, mean, var = na.norm_relu_train(xg, w, b, 1e-5, pool=pool)
         y.backward(dy)
         runs.append([y, mean, var, xg.grad, w.grad, b.grad])
     for a, b in zip(*runs):
@@ -381,8 +610,10 @@ def test_one_rank_group_agrees_with_no_group_on_the_card(cuda, tmp_path):
 
 
 def test_flagship_launches_on_the_card(cuda):
-    """A flagship forward launches apply once a block (8); a train step
-    stats, apply, backward_reduce and backward_dx once a block each."""
+    """A flagship forward launches apply once in each stage's first block
+    and apply_pool in its last (4 + 4); a train step stats once a block (8),
+    and apply, backward_reduce and backward_dx in the first blocks, their
+    pooled versions in the last (4 each)."""
     from mla_tpu_torch.entry import flagship_config, flagship_forward
     from mla_tpu_torch.models.zoo import build_model
     from mla_tpu_torch.train.state import create_train_state, make_train_step
@@ -395,19 +626,49 @@ def test_flagship_launches_on_the_card(cuda):
     model.eval()
     flagship_forward(cfg)(model, wav)
     fwd = {k: na.LAUNCHES[k] - before[k] for k in na.LAUNCHES}
-    assert fwd == {"apply": 8, "stats": 0, "backward_reduce": 0, "backward_dx": 0}
+    assert fwd == {**dict.fromkeys(na.LAUNCHES, 0), "apply": 4, "apply_pool": 4}
     state = create_train_state(cfg, model)
     step = make_train_step(cfg, model, "waveform")
     before = dict(na.LAUNCHES)
     loss = float(step(state, wav, labels)[1])
     train = {k: na.LAUNCHES[k] - before[k] for k in na.LAUNCHES}
     assert np.isfinite(loss)
-    assert train == {"apply": 8, "stats": 8, "backward_reduce": 8, "backward_dx": 8}
+    assert train == {"apply": 4, "stats": 8, "backward_reduce": 4, "backward_dx": 4,
+                     "apply_pool": 4, "backward_reduce_pool": 4, "backward_dx_pool": 4}
+
+
+def test_flagship_kernels_hold_no_max_pool_on_the_card(cuda):
+    """A profile of one flagship forward and one train step (two clips)
+    shows the pooled kernels and no max-pool kernel of the library."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mla_tpu_torch.entry import flagship_config, flagship_forward
+    from mla_tpu_torch.models.zoo import build_model
+    from mla_tpu_torch.train.state import create_train_state, make_train_step
+
+    cfg = flagship_config()
+    model = build_model(cfg.model, device=cuda, seed=0)
+    wav = torch.randn((2, 160000), device=cuda) * 0.1
+    labels = (torch.rand((2, cfg.model.n_classes), device=cuda) < 0.05).float()
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, "waveform")
+    model.eval()
+    flagship_forward(cfg)(model, wav)  # builds and warms up outside the profile
+    step(state, wav, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.eval()
+        flagship_forward(cfg)(model, wav)
+        step(state, wav, labels)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("norm_act_pool_elementwise" in k for k in names), names
+    assert not [k for k in names if "max_pool" in k], names
 
 
 def test_card_export_round_trip_of_the_eval_model(cuda, tmp_path):
     """The one-shot artifact exported on the card (f32 model, as the export
-    path traces it) holds the apply op, loads, and matches the eager forward."""
+    path traces it) holds the apply ops, loads, and matches the eager forward."""
     from mla_tpu_torch.config import get_config
     from mla_tpu_torch.models.zoo import build_model
     from mla_tpu_torch.ops import frontend as fe
@@ -421,12 +682,14 @@ def test_card_export_round_trip_of_the_eval_model(cuda, tmp_path):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        before = na.LAUNCHES["apply"]
         ex.export_forward(cfg, sd, path, batch=2, seconds=2.0, device=cuda)
         fn = ex.load_exported(path, device=cuda)
         wav = (np.random.default_rng(4).standard_normal((2, 32000)) * 0.1).astype(np.float32)
+        before = dict(na.LAUNCHES)
         got = fn(wav)
-        assert na.LAUNCHES["apply"] - before == 4  # the loaded program ran the kernel a block
+        # the loaded program ran a kernel a block: each stage's last pooled
+        assert {k: na.LAUNCHES[k] - before[k] for k in ("apply", "apply_pool")} == {
+            "apply": 2, "apply_pool": 2}
         model = build_model(cfg.model, device=cuda, seed=0)
         model.load_state_dict(sd)
         with torch.no_grad():

@@ -347,6 +347,7 @@ def test_train_step_phases_and_trunk_blocks(store):
     assert edges == sorted(edges)
     blocks = [s for s in spans if s.name == "mla.trunk.norm_act"]
     assert [b.attrs["block"] for b in blocks] == list(range(N_BLOCKS))
+    assert [b.attrs.get("pool") for b in blocks] == [None, 1, None, 1]  # each stage's last
     assert {b.parent for b in blocks} == {phases[1].id}
 
 
@@ -370,6 +371,8 @@ def test_trunk_norm_act_span_per_block(store, norm):
     blocks = profiling.spans("mla.trunk.norm_act")
     assert [b.attrs["block"] for b in blocks] == [0, 1, 2]
     assert all(b.parent == 0 and b.start_ns <= b.end_ns for b in blocks)
+    # with batch norm each stage's block (maps 16 x 8, 8 x 4, 4 x 2) holds its max pool too
+    assert [b.attrs.get("pool") for b in blocks] == ([1] * 3 if norm == "batch" else [None] * 3)
 
 
 def test_trunk_block_spans_only_on_a_recorded_thread(store, monkeypatch):
