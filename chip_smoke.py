@@ -15,14 +15,13 @@ printing its last line:
      load the ingest library, which from then on carries every wav read,
      resample and ADPCM encode;
   3. each kernel against its plain torch version on the card: the fused
-     front-end, both variants (mma, the tensor-core kernel the main path
-     takes, and simt, the first design), at the serving, training and
-     flagship ([128, 160000]) shapes and a few others, per precision mode,
-     and against the front-end golden file (TF32 off); the
-     row-merge probe's kernels bit-exact at five cases (three aligned shapes
-     up to [16384, 4096], an odd [33, 7], and a view that starts one float
-     into its buffer), each case launching the row-merge variant
-     (row_merge_bulk or row_merge_generic) that row_merge_variant names;
+     front-end at the serving, training and flagship ([128, 160000]) shapes
+     and a few others, per precision mode, one launch each, and against the
+     front-end golden file (TF32 off); the row-merge probe's kernels
+     bit-exact at five cases (three aligned shapes up to [16384, 4096], an
+     odd [33, 7], and a view that starts one float into its buffer), each
+     case launching the row-merge variant (row_merge_bulk or
+     row_merge_generic) that row_merge_variant names;
      the ADPCM decode kernel, both variants (scan, the warp-parallel scan
      the wrapper picks for 4-bit codes in blocks of 256, and serial, one
      lane per block, which it picks for the rest), bit-exact against
@@ -48,12 +47,12 @@ printing its last line:
      streaming_inference preset with frontend.impl="pallas", random weights
      from a seeded torch.Generator through the flat weight format, 8 int16
      streams of ~20-30 s fed in uneven blocks, ticks, flushes and scores;
-     the front-end kernel must run once per device step, every launch on
-     the mma variant, and the scores must agree with the same server on the
-     torch-ops front-end; then the same on the adpcm4 wire (and, shorter,
-     adpcm2): one decode launch per device step, every one on the variant
-     decode_variant picks for the wire (serial at block 64), and the scores held against the float32-wire server fed the
-     codec's round trip;
+     the front-end kernel must run once per device step, and the scores
+     must agree with the same server on the torch-ops front-end; then the
+     same on the adpcm4 wire (and, shorter, adpcm2): one decode launch per
+     device step, every one on the variant decode_variant picks for the
+     wire (serial at block 64), and the scores held against the
+     float32-wire server fed the codec's round trip;
   5b. the server's ring, packed tick and reload at full width, on the same
      preset and schedule: the ring (timeline_cap=64) on int16 and adpcm4,
      whose states must equal the ring-less server's bit for bit, whose
@@ -85,8 +84,8 @@ printing its last line:
   6. the training path at full width: fit() on the us8k_fused_frontend
      preset as shipped (front-end kernel at "highest", batch 64 of 4 s
      clips), cut only in num_steps / eval_every / checkpoint_every; finite
-     losses, one front-end launch per train step and per eval batch, every
-     launch on the mma variant, resume() restoring exactly the trained weights, and the first step's
+     losses, one front-end launch per train step and per eval batch,
+     resume() restoring exactly the trained weights, and the first step's
      loss on the kernel against the torch-ops front-end; then a short fit()
      with data.staging_dtype=adpcm4 (one decode launch per train step, on
      the scan variant that block 256 picks) and its first step against float32 staging of the
@@ -96,8 +95,8 @@ printing its last line:
      fidelity record max |probs("default") - probs("highest")| with TF32
      off, and pallas against xla; then full-width train steps at batch
      128 x 10 s on each front-end impl: finite losses, the first step's
-     loss pallas against xla, every front-end launch on mma, step times
-     on the host clock and with CUDA events, peak memory, one profile;
+     loss pallas against xla, front-end launches, peak memory (the step's
+     time is the audioset-train-b256 cell's);
   5d. export on the card (mla_tpu_torch/serve/export.py), same preset and
      weights: the one-shot artifact at batch 8 x 10 s on float32 and adpcm4,
      against the eager forward of the decoded clips (1e-3), and the
@@ -111,24 +110,23 @@ printing its last line:
      ms per chunk call; a card artifact loaded with device="cpu" runs once;
   6c. the training leftovers: fit() on us8k_fused_frontend with mixup,
      SpecAugment and data.pipeline="grain" (the DataLoader pipeline, two
-     workers), finite losses, one mma front-end launch per step and eval
+     workers), finite losses, one front-end launch per step and eval
      batch (phase 7 times the augmented step in turns with the plain one and
      profiles five); the flagship train step with
      remat_trunk off and on (first-step loss within 1e-3, running
      statistics equal, peak memory, step ms); evaluate_sed on 64
      synthetic_events clips of 10 s at the streaming preset's width;
   7. times (median of 30 after warm-up): each kernel, its plain version and
-     the library call where one exists, with CUDA events (the front-end's
-     two variants per mode at the serving and training shapes, and the mma
-     variant at each frame tile; the probe
-     kernels on inputs that are not in the L2 cache, at every case but
-     [33, 7], with row_merge_generic also timed at the aligned shapes,
-     where the wrapper takes row_merge_bulk; the ADPCM decode per width at
-     the serving and training shapes on L2-cold wires and on a wire in the
-     L2 cache, both variants, and each variant on one 64-sample unit, its
-     launch floor; the mma front-end at the flagship's
-     [128, 160000]); server ticks on the host clock, tick() and the packed
-     tick in turns (int16 with the ring off and on, adpcm4), and one train
+     the library call where one exists, with CUDA events (the front-end per
+     mode at the serving and training shapes, at the frame tile tile_frames
+     picks and at each tile; the probe kernels on inputs that are not in
+     the L2 cache, at every case but [33, 7], with row_merge_generic also
+     timed at the aligned shapes, where the wrapper takes row_merge_bulk;
+     the ADPCM decode per width at the serving and training shapes on
+     L2-cold wires and on a wire in the L2 cache, both variants, and each
+     variant on one 64-sample unit, its launch floor; the front-end at the
+     flagship's [128, 160000]); server ticks on the host clock, tick() and
+     the packed tick in turns (int16 with the ring off and on, adpcm4), and one train
      step; each kernel's bound; and torch.profiler breakdowns (device busy,
      idle share, host-to-device copies per tick) of ten ticks of each kind
      and five train steps;
@@ -139,34 +137,34 @@ printing its last line:
      TF32 flags);
   8b. the parity harness: parity.run_all() in process on the card, every
      check line printed, none failed (metrics_vs_sklearn may be skipped
-     where sklearn does not import), frontend_pallas through one mma launch,
-     and the caller's TF32 flags (turned on for it) read the same after;
+     where sklearn does not import), frontend_pallas through one front-end
+     launch, and the caller's TF32 flags (turned on for it) read the same after;
      then `python -m mla_tpu_torch parity` as a subprocess, exit 0;
   8c. fit() on us8k_fused_frontend as shipped, cut to 10 steps, with
      train.tensorboard: the event file read back with EventAccumulator has
-     the tags, steps and values (as f32) of scalars.csv; one mma launch per
-     step and eval batch;
+     the tags, steps and values (as f32) of scalars.csv; one front-end
+     launch per step and eval batch;
   8d. the same preset streamed on the adpcm4 wire (data.device_resident
      false: each batch gathered and encoded on the host, uploaded, decoded
      by the scan kernel), 10 steps: finite losses, one native encode, one
-     scan decode and one mma launch per step (plus one mma per eval batch);
-     then its step in turns with the same step on the numpy encoder and with
+     scan decode and one front-end launch per step (plus one front-end
+     launch per eval batch); then its step in turns with the same step on the numpy encoder and with
      the resident adpcm4 step on the same batch, host ms, device busy and
      idle share of each (the card's side of an out-of-core set);
   9. the checkpoint verbs, as subprocesses (`python -m mla_tpu_torch ...`),
      most at once: weights --out from phase 6's trained workspace (exactly
      the keys and arrays of state_dict_to_flat), weights --load into a
      fresh workspace and eval on both (identical stats; eval in process:
-     one mma launch per eval batch); eval --per_class --calibrate --events
-     --sweep (a CSV row and a threshold per class, events and events_sweep
+     one front-end launch per eval batch); eval --per_class --calibrate
+     --events --sweep (a CSV row and a threshold per class, events and events_sweep
      stats); infer on a 30 s wav at full width with frontend.impl="pallas"
      and phase 5's weights (loaded by weights --load), one-shot and --stream
      with --timeline and --events, and --wav_dir over three clips of other
      lengths: the top-k bit-equal to tag_clip / StreamingTagger in process,
-     the same runs through the CLI in process with one mma launch per
+     the same runs through the CLI in process with one front-end launch per
      device step; embed bit-equal to AudioTagger.embed(apply_frontend(...))
-     (one mma launch), extract bit-equal to waveform_to_patches, summary and
-     configs equal to their in-process text; profile (3 traced steps of
+     (one front-end launch), extract bit-equal to waveform_to_patches,
+     summary and configs equal to their in-process text; profile (3 traced steps of
      us8k_fused_frontend): a trace file and the reference's JSON keys, its
      mean_step_ms beside phase 7's untraced step; the native ingest library:
      both ADPCM encoders bit-exact against numpy at [64, 64000] block 256
@@ -178,10 +176,10 @@ printing its last line:
      server (8 streams over [cuda:0] x 2, int16 and adpcm4, ring 64, by tick()
      and the packed tick) against the unsharded server, f32 with TF32 off
      within rtol 1e-4 / atol 1e-5 and the preset's bf16 within the bf16
-     budget, one mma launch (and on adpcm4 one serial decode) per shard and
+     budget, one front-end launch (and on adpcm4 one serial decode) per shard and
      device step, the ticks timed in turns and profiled; serve --native
      --shard_streams tagged by tag; tag_clip_time_sharded of a 60 s clip over
-     [cuda:0] x 4 against tag_clip, one mma launch; the train verb on one NCCL
+     [cuda:0] x 4 against tag_clip, one front-end launch; the train verb on one NCCL
      rank under torch.distributed.run, its losses against the plain fit's
      (bit-equal); two gloo ranks (this script with --dp-worker) against one
      process at the global batch: us8k in f32 (3 steps, losses; 1 step,
@@ -193,7 +191,7 @@ printing its last line:
      holds; fit with train.model_parallel=2 on two gloo ranks against one
      process (us8k as shipped, 3 steps and an eval, each step's loss within
      2x the furthest of eight one-ulp input controls of one process at that
-     step, at least 1e-4, one mma launch per step and eval batch a rank; us8k f32 with TF32 off, one
+     step, at least 1e-4, one front-end launch per step and eval batch a rank; us8k f32 with TF32 off, one
      step, gradients against the one-ulp control; audioset_full_dp at a
      global batch of 128, losses within 1e-3, step ms, idle share, peak
      memory and the collectives' host ms a rank) and on a (2, 2) grid of four
@@ -201,7 +199,7 @@ printing its last line:
      sharded over [cuda:0] x (1, 2) and x (2, 2) (a tensor-parallel replica
      per data row; int16 and adpcm4, tick() and the packed tick, ring 64)
      against the unsharded server, f32 with TF32 off within 1e-6 and bf16
-     within 1e-3, one mma launch per data row and device step; a reload of
+     within 1e-3, one front-end launch per data row and device step; a reload of
      sharded weights keeping the layout; the ticks in turns and profiled;
      entry.dryrun_multichip(8) on the card.
 Launch counts are set to 0 just before each path (probe, serving on each
@@ -252,7 +250,6 @@ BF16_SCORE_BUDGET = 2e-2  # scores, pallas vs torch-ops front-end under bf16 com
 # only where that flips a bf16 rounding (3.4e-5 measured on an H100)
 BF16_LOSS_BUDGET = 1e-3
 MAIN_PRECISION = "default"  # the streaming_inference preset's front-end precision
-VARIANTS = ("mma", "simt")  # the front-end kernel's; the main path takes mma
 DECODE_VARIANTS = ("scan", "serial")  # the ADPCM decode's; decode_variant picks per wire
 # (shape, rows, offset in floats of x into its buffer, the row-merge variant
 # it must take); the first is the probe's own
@@ -278,7 +275,7 @@ TIMELINE_CAP = 64  # the ring's patches per stream (8 streams: ~6.5 MB)
 SUM_TOL = 1e-5  # sum_t w * f of a window that covers the stream against the pooled state
 LEFTOVER_TOL = 1e-4  # f32 forward on the card against the CPU, TF32 off
 FLAGSHIP_BATCH = 128  # bench.py's batch of 10 s clips
-FLAGSHIP_STEPS = 3  # train steps per front-end impl before the timed ones
+FLAGSHIP_STEPS = 3  # train steps per front-end impl
 # (substring of the CUDA symbol, kernel), the first match counting: the
 # port's own kernels are launched through ctypes, outside any operator, so
 # the profiler is read by name
@@ -1280,7 +1277,7 @@ def _export(scfg, state_dict, streams, pallas_scores, zero_counts, tag):
         zero_counts()
         probs = fn(x)
         torch.cuda.synchronize()
-        launches = {"decode": dict(ad.LAUNCHES_BY_VARIANT), "frontend": dict(ff.LAUNCHES_BY_VARIANT)}
+        launches = {"decode": dict(ad.LAUNCHES_BY_VARIANT), "frontend": ff.LAUNCHES}
         with torch.inference_mode():
             want = model(fe.waveform_to_patches(torch.from_numpy(decoded).cuda(), scfg.frontend)
                          ).float().cpu().numpy()
@@ -1296,7 +1293,7 @@ def _export(scfg, state_dict, streams, pallas_scores, zero_counts, tag):
         if probs.shape != (len(clips), scfg.model.n_classes) or not np.isfinite(probs).all() \
                 or err > EXPORT_SCORE_BUDGET:
             raise RuntimeError(f"export one-shot {wire}: shape {probs.shape}, err {err}")
-        if launches["decode"] != want_dec or sum(launches["frontend"].values()):
+        if launches["decode"] != want_dec or launches["frontend"]:
             raise RuntimeError(f"export one-shot {wire}: launches {launches}, want decode "
                                f"{want_dec} and no front-end kernel (the torch-ops front-end)")
         if wire == "adpcm4":
@@ -1345,7 +1342,7 @@ def _export(scfg, state_dict, streams, pallas_scores, zero_counts, tag):
             torch.cuda.synchronize()
             call_ms.append((time.perf_counter() - t0) * 1e3)
         scores = art.finalize(state)
-        launches = {"decode": dict(ad.LAUNCHES_BY_VARIANT), "frontend": dict(ff.LAUNCHES_BY_VARIANT)}
+        launches = {"decode": dict(ad.LAUNCHES_BY_VARIANT), "frontend": ff.LAUNCHES}
         want_dec = {"scan": 0, "serial": n_calls if wire == "adpcm4" else 0}
         xsrv = BatchedStreamingServer(xcfg, state_dict, max_streams=len(streams), chunk_patches=5,
                                       transfer_dtype=wire, timeline_cap=TIMELINE_CAP)
@@ -1381,7 +1378,7 @@ def _export(scfg, state_dict, streams, pallas_scores, zero_counts, tag):
                 or tl_err > EXPORT_SCORE_BUDGET or pallas_err > BF16_SCORE_BUDGET:
             raise RuntimeError(f"export stream {wire}: scores {score_err}, timelines {tl_err}, "
                                f"pallas {pallas_err}")
-        if launches["decode"] != want_dec or sum(launches["frontend"].values()):
+        if launches["decode"] != want_dec or launches["frontend"]:
             raise RuntimeError(f"export stream {wire}: launches {launches}, want decode {want_dec}")
         if wire == "adpcm4":
             dec_paths["export_stream_adpcm4"] = launches["decode"]
@@ -1423,11 +1420,11 @@ SED_CLIPS = 64  # the synthetic_events eval set of the SED phase, 10 s clips
 def _train_leftovers(state_dict, fwav, fy, zero_counts, tag):
     """The training leftovers at full width: fit() on us8k_fused_frontend
     with mixup, SpecAugment and the DataLoader pipeline (finite losses, one
-    mma front-end launch per step and eval batch; phase 7 times the
+    front-end launch per step and eval batch; phase 7 times the
     augmented step against the plain one); the flagship train step with remat_trunk off and on (first-step
     loss within 1e-3, running statistics equal, peak memory and step ms);
     evaluate_sed on a synthetic_events eval set at the streaming preset's
-    width. Returns (record, {path: front-end launches by variant})."""
+    width. Returns (record, {path: front-end launches})."""
     from mla_tpu_torch.config import get_config
     from mla_tpu_torch.entry import flagship_config
     from mla_tpu_torch.models.zoo import build_model
@@ -1445,7 +1442,7 @@ def _train_leftovers(state_dict, fwav, fy, zero_counts, tag):
     res = loop.fit(acfg, workspace=ws)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts, fe_l = dict(res.counts), dict(ff.LAUNCHES_BY_VARIANT)
+    counts, fe_l = dict(res.counts), ff.LAUNCHES
     losses = [h["loss"] for h in res.history]
     print(f"augmented training (mixup {acfg.train.mixup_alpha}, SpecAugment, DataLoader pipeline "
           f"with {acfg.data.grain_workers} workers): {counts['train_steps']} train steps + "
@@ -1454,7 +1451,7 @@ def _train_leftovers(state_dict, fwav, fy, zero_counts, tag):
     if counts["train_steps"] != acfg.train.num_steps or not losses \
             or not np.isfinite(losses).all():
         raise RuntimeError(f"augmented fit: {counts}, losses {losses}")
-    if fe_l != {"mma": counts["train_steps"] + counts["eval_batches"], "simt": 0}:
+    if fe_l != counts["train_steps"] + counts["eval_batches"]:
         raise RuntimeError(f"augmented fit: front-end launches {fe_l} for {counts}")
     fe_paths["train_augmented"] = fe_l
     rec["augmented_fit"] = {"counts": counts, "losses": losses, "fit_s": fit_s,
@@ -1504,14 +1501,14 @@ def _train_leftovers(state_dict, fwav, fy, zero_counts, tag):
     sed = evaluate_sed(ecfg, state_dict, batch_size=32)
     torch.cuda.synchronize()
     sed_s = time.perf_counter() - t0
-    fe_l = dict(ff.LAUNCHES_BY_VARIANT)
+    fe_l = ff.LAUNCHES
     print(f"SED harness: evaluate_sed on {SED_CLIPS} synthetic_events clips of 10 s, "
           f"{ecfg.model.n_classes} classes, batch 32: {sed_s:.2f} s wall; F1 {sed['f1']:.4f}, "
           f"error rate {sed['error_rate']:.4f}, {sed['n_est_events']} events detected against "
           f"{sed['n_ref_events']}; fused_log_mel_patches launches {fe_l} (random weights: no "
           f"quality claim) {tag}")
     if not all(np.isfinite(sed[k]) for k in ("f1", "error_rate", "precision", "recall")) \
-            or sed["n_clips"] != SED_CLIPS or fe_l != {"mma": 2, "simt": 0}:
+            or sed["n_clips"] != SED_CLIPS or fe_l != 2:
         raise RuntimeError(f"SED harness: {sed}, launches {fe_l}")
     fe_paths["sed_eval"] = fe_l
     rec["sed"] = {**sed, "wall_s": sed_s}
@@ -1544,13 +1541,13 @@ def _doctor_parity_logging(zero_counts, tag):
     """Phases 8a-8d: the doctor verb (a subprocess; no-device, a card other
     than sm_90 or a check that errs fails the phase, degraded is printed
     with its reasons); the parity harness in process on the card (every
-    check passes, frontend_pallas through one mma launch, the caller's TF32
+    check passes, frontend_pallas through one front-end launch, the caller's TF32
     flags back after it) and the parity verb as a subprocess (exit 0); a
-    TensorBoard fit whose event file equals scalars.csv, one mma launch per
-    step and eval batch; a streamed adpcm4 fit, one scan decode and one mma
+    TensorBoard fit whose event file equals scalars.csv, one front-end launch per
+    step and eval batch; a streamed adpcm4 fit, one scan decode and one front-end
     launch per step, then its step in turns with the resident adpcm4 step
     (host ms, profiles, idle share). Returns (record, {path: front-end
-    launches by variant}, {path: decode launches by variant})."""
+    launches}, {path: decode launches by variant})."""
     from mla_tpu_torch import _device, parity
     from mla_tpu_torch.config import get_config
     from mla_tpu_torch.data import adpcm, native
@@ -1598,7 +1595,7 @@ def _doctor_parity_logging(zero_counts, tag):
     results = parity.run_all()
     torch.cuda.synchronize()
     parity_s = time.perf_counter() - t0
-    fe_l = dict(ff.LAUNCHES_BY_VARIANT)
+    fe_l = ff.LAUNCHES
     after = _device.tf32_flags()
     torch.set_float32_matmul_precision("highest")  # back to the script's own setting
     torch.backends.cudnn.allow_tf32 = False
@@ -1609,7 +1606,7 @@ def _doctor_parity_logging(zero_counts, tag):
     print(f"parity: {len(results)} checks in {parity_s:.2f} s, skipped {skipped}; "
           f"fused_log_mel_patches launches {fe_l}; TF32 flags before {flags}, after {after} "
           f"{tag}")
-    if failed or fe_l != {"mma": 1, "simt": 0} or after != flags:
+    if failed or fe_l != 1 or after != flags:
         raise RuntimeError(f"parity: failed {failed}, launches {fe_l}, flags {flags} -> {after}")
     fe_paths["parity"] = fe_l
     rc, out = _module_main(["parity"], timeout=600)
@@ -1630,7 +1627,7 @@ def _doctor_parity_logging(zero_counts, tag):
     zero_counts()
     res = loop.fit(tcfg, workspace=ws)
     torch.cuda.synchronize()
-    counts, fe_l = dict(res.counts), dict(ff.LAUNCHES_BY_VARIANT)
+    counts, fe_l = dict(res.counts), ff.LAUNCHES
     with open(os.path.join(ws, "scalars.csv"), newline="") as fh:
         rows = list(csv.DictReader(fh))
     want = {}
@@ -1648,7 +1645,7 @@ def _doctor_parity_logging(zero_counts, tag):
     if got != want or not rows:
         raise RuntimeError(f"TensorBoard events differ from scalars.csv: {got} against {want}")
     if counts["train_steps"] != tcfg.train.num_steps \
-            or fe_l != {"mma": counts["train_steps"] + counts["eval_batches"], "simt": 0}:
+            or fe_l != counts["train_steps"] + counts["eval_batches"]:
         raise RuntimeError(f"TensorBoard fit: {counts}, launches {fe_l}")
     fe_paths["train_tensorboard"] = fe_l
     rec["tensorboard_fit"] = {"counts": counts, "frontend_launches": fe_l,
@@ -1664,7 +1661,7 @@ def _doctor_parity_logging(zero_counts, tag):
     res = loop.fit(scfg, workspace=ws)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts, fe_l, dec_l = dict(res.counts), dict(ff.LAUNCHES_BY_VARIANT), \
+    counts, fe_l, dec_l = dict(res.counts), ff.LAUNCHES, \
         dict(ad.LAUNCHES_BY_VARIANT)
     native_encodes = native.CALLS["adpcm4_encode"] - native_before["adpcm4_encode"]
     losses = [h["loss"] for h in res.history]
@@ -1674,7 +1671,7 @@ def _doctor_parity_logging(zero_counts, tag):
           f"launches {fe_l}, native adpcm4 encodes {native_encodes}; losses {losses}")
     if counts["train_steps"] != scfg.train.num_steps or not np.isfinite(losses).all() \
             or dec_l != {**dict.fromkeys(("scan", "serial"), 0), picked: counts["train_steps"]} \
-            or fe_l != {"mma": counts["train_steps"] + counts["eval_batches"], "simt": 0}:
+            or fe_l != counts["train_steps"] + counts["eval_batches"]:
         raise RuntimeError(f"streamed adpcm4 fit: {counts}, decode {dec_l}, front-end {fe_l}, "
                            f"losses {losses}")
     # the host encoder is the native library's (phase 9f holds it bit-exact
@@ -1784,7 +1781,7 @@ def _checkpoint_verbs(serve_state_dict, packages, train_step_ms, zero_counts, ta
     """Phase 9: the checkpoint verbs on the card as subprocesses, beside the
     same work in process (launch counts read there), and the native ingest
     library against numpy and scipy. Returns (record, {path: front-end
-    launches by variant})."""
+    launches})."""
     from scipy.io import wavfile
     from scipy.signal import resample_poly
 
@@ -1806,10 +1803,10 @@ def _checkpoint_verbs(serve_state_dict, packages, train_step_ms, zero_counts, ta
     def d(rel):
         return os.path.join(VERBS_DIR, rel)
 
-    def mma_only(path, n):
-        fe_l = dict(ff.LAUNCHES_BY_VARIANT)
-        if fe_l != {"mma": n, "simt": 0}:
-            raise RuntimeError(f"{path}: front-end launches {fe_l}, want {n} on mma")
+    def frontend_launches(path, n):
+        fe_l = ff.LAUNCHES
+        if fe_l != n:
+            raise RuntimeError(f"{path}: front-end launches {fe_l}, want {n}")
         fe_paths[path] = fe_l
         return fe_l
 
@@ -1890,7 +1887,7 @@ def _checkpoint_verbs(serve_state_dict, packages, train_step_ms, zero_counts, ta
     line = _verb_in_process(["eval", *us8k, "--workspace", loaded_ws])
     torch.cuda.synchronize()
     n_batches = -(-ecfg.data.n_eval_clips // ecfg.train.batch_size)
-    fe_l = mma_only("eval_verb", n_batches)
+    fe_l = frontend_launches("eval_verb", n_batches)
     print(f"eval (in process): {n_batches} eval batches, fused_log_mel_patches launches {fe_l}")
     if line != out_e:
         raise RuntimeError(f"eval in process {line!r} against the verb's {out_e!r}")
@@ -1950,7 +1947,7 @@ def _checkpoint_verbs(serve_state_dict, packages, train_step_ms, zero_counts, ta
             got_in = [json.loads(ln) for ln in _verb_in_process(argv).strip().splitlines()]
             torch.cuda.synchronize()
             steps = folds[0] + (2 if path == "infer" else 0)  # tag_clip + the timeline forward
-            fe_l = mma_only(path, steps)
+            fe_l = frontend_launches(path, steps)
             print(f"{path}: {json.dumps(got_sub[-1])[:300]}; {steps} device steps, "
                   f"fused_log_mel_patches launches {fe_l}")
             if got_in != got_sub:
@@ -1980,7 +1977,7 @@ def _checkpoint_verbs(serve_state_dict, packages, train_step_ms, zero_counts, ta
     zero_counts()
     _verb_in_process(["embed", "--wav", clip, "--out", d("emb_in.npy"), *pallas])
     torch.cuda.synchronize()
-    fe_l = mma_only("embed", 1)
+    fe_l = frontend_launches("embed", 1)
     patches = np.load(d("patches.npy"))
     print(f"embed: {out['embed'].strip()}, bit-equal to AudioTagger.embed(apply_frontend(...)): "
           f"{np.array_equal(emb, want_emb)}, in process {fe_l}; extract: "
@@ -2131,13 +2128,12 @@ def _dp_fit(name, preset, overrides, f32, ws, dp_timing: bool):
     cfg = get_config(preset, overrides)
     rank = distributed.process_index()
     ff.LAUNCHES = 0
-    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     torch.cuda.reset_peak_memory_stats()
     with tf32_off() if f32 else contextlib.nullcontext():
         res = loop.fit(cfg, workspace=os.path.join(ws, name), log=False)
         torch.cuda.synchronize()
         rec = {"losses": [h["loss"] for h in res.history], "counts": dict(res.counts),
-               "launches": dict(ff.LAUNCHES_BY_VARIANT),
+               "launches": ff.LAUNCHES,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         params = os.path.join(ws, f"{name}.params.rank{rank}.pt")
         model, opt = res.state.model, res.state.optimizer
@@ -2500,7 +2496,7 @@ def _parallelism(scfg, state_dict, streams, schedule, zero_counts, check_launche
             zero_counts()
             got = tag_clip_time_sharded(cfg_, state_dict, clip60, mesh4)
             torch.cuda.synchronize()
-            fe_l = dict(ff.LAUNCHES_BY_VARIANT)
+            fe_l = ff.LAUNCHES
             t0 = time.perf_counter()
             tag_clip_time_sharded(cfg_, state_dict, clip60, mesh4)
             sharded_s = time.perf_counter() - t0
@@ -2516,7 +2512,7 @@ def _parallelism(scfg, state_dict, streams, schedule, zero_counts, check_launche
               f"shards of cuda:0 against tag_clip max |diff| {err:.3e}; front-end launches "
               f"{fe_l}; host {sharded_s * 1e3:.2f} ms (whole clip {whole_s * 1e3:.2f} ms, "
               f"each with its model build) {tag}")
-        if not ok or fe_l != {"mma": 1, "simt": 0} or not np.isfinite(got).all():
+        if not ok or fe_l != 1 or not np.isfinite(got).all():
             raise RuntimeError(f"10b {label}: {cp[label]}")
     fe_paths.update({f"context_parallel_{k}": v["frontend_launches"] for k, v in cp.items()})
     rec["context_parallel"] = cp
@@ -2544,7 +2540,7 @@ def _parallelism(scfg, state_dict, streams, schedule, zero_counts, check_launche
             zero_counts()
             res = loop.fit(cfg10, workspace=wsp, log=False)
             plain.append({h["step"]: h["loss"] for h in res.history})
-            plain_fe = dict(ff.LAUNCHES_BY_VARIANT)
+            plain_fe = ff.LAUNCHES
             del res
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn
@@ -2614,10 +2610,10 @@ def _parallelism(scfg, state_dict, streams, schedule, zero_counts, check_launche
         print(f"10d {name}, 2 gloo ranks on cuda:0 against 1 process at the global batch: "
               f"losses {r0['losses']} against {ref['losses']} (max rel diff {lrel:.3e}); "
               f"parameters max |diff| {entry['param_max_abs_diff']:.3e}; ranks equal {same}; "
-              f"mma launches per rank {[r['launches'] for r in (r0, r1)]} (want {want_fe}, "
+              f"front-end launches per rank {[r['launches'] for r in (r0, r1)]} (want {want_fe}, "
               f"front-end {impl!r}); peak GB per rank {r0['peak_gb']:.2f} / "
               f"{r1['peak_gb']:.2f}, single {ref['peak_gb']:.2f} {tag}")
-        if not same or any(r["launches"] != {"mma": want_fe, "simt": 0} for r in (r0, r1)):
+        if not same or any(r["launches"] != want_fe for r in (r0, r1)):
             raise RuntimeError(f"10d {name}: {entry}")
         if not np.isfinite(l0).all():
             raise RuntimeError(f"10d {name}: non-finite losses {l0}")
@@ -2808,11 +2804,11 @@ def _tensor_parallelism(scfg, state_dict, state_dict2, streams, schedule, zero_c
                      "peak_gb": [r["peak_gb"] for r in rs], "single_peak_gb": ref["peak_gb"]}
             print(f"11 {name}, {world} gloo ranks on cuda:0 against 1 process: losses "
                   f"{rs[0]['losses']} against {ref['losses']} (max rel diff {lrel:.3e}); ranks "
-                  f"equal {same}; mma launches per rank {entry['launches']} (want {want_fe}, "
+                  f"equal {same}; front-end launches per rank {entry['launches']} (want {want_fe}, "
                   f"front-end {impl!r}); peak GB per rank "
                   f"{[round(g, 3) for g in entry['peak_gb']]}, single {ref['peak_gb']:.3f} {tag}")
             if (not same or not np.isfinite(l0).all()
-                    or any(r["launches"] != {"mma": want_fe, "simt": 0} for r in rs)):
+                    or any(r["launches"] != want_fe for r in rs)):
                 raise RuntimeError(f"11 {name}: {entry}")
             if f32:
                 entry.update(_step1_check(loaded[0], sref, rs[0]["lr"]))
@@ -3082,39 +3078,35 @@ def main() -> int:
              # the flagship's batch (bench.py's 128 x 10 s): BM 64, 16 tiles per
              # clip, a ragged last tile
              ("flagship [128, 160000]", (FLAGSHIP_BATCH, 160000), flagship_config().frontend)]
-    # errs[variant]["<case> <precision>"]: max |kernel - plain version|
-    errs = {v: {} for v in VARIANTS}
+    # errs["<case> <precision>"]: max |kernel - plain version|
+    errs = {}
     for label, shape, c in cases:
         wav = (torch.randn(shape, generator=gen) * 0.1).cuda()
         for prec, tol in TOL.items():
             ref = ff.fused_log_mel_patches_reference(wav, c, prec)
-            for variant in VARIANTS:
-                before = dict(ff.LAUNCHES_BY_VARIANT)
-                out = ff.fused_log_mel_patches(wav, c, prec, _variant=variant)
-                torch.cuda.synchronize()
-                if ff.LAUNCHES_BY_VARIANT[variant] != before[variant] + 1:
-                    raise RuntimeError(f"{label} {prec}: the {variant} variant did not launch")
-                if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
-                    raise RuntimeError(f"kernel {variant} {label} {prec}: shape "
-                                       f"{tuple(out.shape)} or non-finite")
-                err = float((out - ref).abs().max())
-                errs[variant][f"{label} {prec}"] = err
-                print(f"kernel vs plain, {variant}, {label}, {prec}: max |diff| {err:.3e} "
-                      f"(tol {tol:g})")
-                if err > tol:
-                    raise RuntimeError(f"kernel {variant} disagrees with its plain version: "
-                                       f"{label} {prec} {err}")
+            before = ff.LAUNCHES
+            out = ff.fused_log_mel_patches(wav, c, prec)
+            torch.cuda.synchronize()
+            if ff.LAUNCHES != before + 1:
+                raise RuntimeError(f"{label} {prec}: the kernel did not launch")
+            if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+                raise RuntimeError(f"kernel {label} {prec}: shape {tuple(out.shape)} or "
+                                   f"non-finite")
+            err = float((out - ref).abs().max())
+            errs[f"{label} {prec}"] = err
+            print(f"kernel vs plain, {label}, {prec}: max |diff| {err:.3e} (tol {tol:g})")
+            if err > tol:
+                raise RuntimeError(f"kernel disagrees with its plain version: {label} {prec} "
+                                   f"{err}")
     golden = np.load(os.path.join(ROOT, "tests", "golden", "frontend_golden.npz"))
-    for variant in VARIANTS:
-        out = ff.fused_log_mel_patches(torch.from_numpy(golden["wav"]).cuda(), cfg, "highest",
-                                       _variant=variant)
-        torch.cuda.synchronize()
-        err = float(np.abs(out.cpu().numpy() - golden["patches"]).max())
-        errs[variant]["golden highest"] = err
-        print(f"kernel vs tests/golden/frontend_golden.npz, {variant}, highest: max |diff| "
-              f"{err:.3e} (tol 2e-4)")
-        if err > 2e-4:
-            raise RuntimeError(f"kernel {variant} disagrees with the front-end golden: {err}")
+    out = ff.fused_log_mel_patches(torch.from_numpy(golden["wav"]).cuda(), cfg, "highest")
+    torch.cuda.synchronize()
+    err = float(np.abs(out.cpu().numpy() - golden["patches"]).max())
+    errs["golden highest"] = err
+    print(f"kernel vs tests/golden/frontend_golden.npz, highest: max |diff| {err:.3e} "
+          f"(tol 2e-4)")
+    if err > 2e-4:
+        raise RuntimeError(f"kernel disagrees with the front-end golden: {err}")
 
     probe_errs = {"scale2": {}, "row_merge": {}}
     for shape, rows, offset, variant in PROBE_CASES:
@@ -3232,18 +3224,14 @@ def main() -> int:
                                  transfer_dtype="int16")
     srv.warmup()
     ff.LAUNCHES = 0
-    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     d0 = srv.dispatches
     scores = _drive(srv, streams, schedule)
     torch.cuda.synchronize()
     serve_launches, dispatches = ff.LAUNCHES, srv.dispatches - d0
-    serve_by_variant = dict(ff.LAUNCHES_BY_VARIANT)
     print(f"serving path: {dispatches} device steps, fused_log_mel_patches launches "
-          f"{serve_launches} {serve_by_variant}")
+          f"{serve_launches}")
     if serve_launches != dispatches or serve_launches < 1:
         raise RuntimeError(f"kernel launches {serve_launches} != device steps {dispatches}")
-    if serve_by_variant != {"mma": serve_launches, "simt": 0}:
-        raise RuntimeError(f"serving launches not all on the mma variant: {serve_by_variant}")
     n_classes = scfg.model.n_classes
     if scores.shape != (9, n_classes) or not np.isfinite(scores).all() \
             or scores.min() < 0 or scores.max() > 1:
@@ -3277,24 +3265,21 @@ def main() -> int:
         wsrv.warmup()
         ad.LAUNCHES = ff.LAUNCHES = 0
         ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
-        ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
         d0 = wsrv.dispatches
         wscores = _drive(wsrv, wstreams, wschedule)
         torch.cuda.synchronize()
-        steps, dec_launches = wsrv.dispatches - d0, ad.LAUNCHES
+        steps, dec_launches, fe_launches = wsrv.dispatches - d0, ad.LAUNCHES, ff.LAUNCHES
         dec_by_variant = dict(ad.LAUNCHES_BY_VARIANT)
-        fe_by_variant = dict(ff.LAUNCHES_BY_VARIANT)
         print(f"serving path, {wire_name} wire: {steps} device steps, adpcm_decode launches "
-              f"{dec_launches} {dec_by_variant}, fused_log_mel_patches launches {ff.LAUNCHES} "
-              f"{fe_by_variant}")
+              f"{dec_launches} {dec_by_variant}, fused_log_mel_patches launches {fe_launches}")
         if dec_launches != steps or steps < 1:
             raise RuntimeError(f"{wire_name}: decode launches {dec_launches} != device steps {steps}")
         picked = ad.decode_variant(bits, adpcm.SERVE_BLOCK)
         if dec_by_variant != {**dict.fromkeys(DECODE_VARIANTS, 0), picked: steps}:
             raise RuntimeError(f"{wire_name}: decode launches {dec_by_variant} != {steps} on "
                                f"{picked}")
-        if fe_by_variant != {"mma": steps, "simt": 0}:
-            raise RuntimeError(f"{wire_name}: front-end launches {fe_by_variant} != {steps} on mma")
+        if fe_launches != steps:
+            raise RuntimeError(f"{wire_name}: front-end launches {fe_launches} != {steps}")
         if not np.isfinite(wscores).all() or wscores.min() < 0 or wscores.max() > 1:
             raise RuntimeError(f"{wire_name}: bad scores")
         round_trip = [dec(enc(s, block=adpcm.SERVE_BLOCK), n=len(s), block=adpcm.SERVE_BLOCK)
@@ -3312,7 +3297,7 @@ def main() -> int:
             raise RuntimeError(f"{wire_name} server disagrees with the float32 server: {werr}")
         adpcm_serve[wire_name] = {"device_steps": steps, "decode_launches": dec_launches,
                                   "decode_launches_by_variant": dec_by_variant,
-                                  "frontend_launches": fe_by_variant["mma"],
+                                  "frontend_launches": fe_launches,
                                   "score_err_vs_round_trip": werr, "streams": len(wstreams)}
         if wire_name == "adpcm4":
             asrv, adpcm4_scores = wsrv, wscores  # held against below, and timed
@@ -3324,18 +3309,17 @@ def main() -> int:
     def zero_counts():
         ad.LAUNCHES = ff.LAUNCHES = 0
         ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
-        ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
 
     def check_launches(path, steps, adpcm_wire):
-        """Front-end launches on mma = device steps; decode launches on the
+        """Front-end launches = device steps; decode launches on the
         serving wire's variant = device steps on an adpcm wire, else 0."""
-        fe_l, dec_l = dict(ff.LAUNCHES_BY_VARIANT), dict(ad.LAUNCHES_BY_VARIANT)
+        fe_l, dec_l = ff.LAUNCHES, dict(ad.LAUNCHES_BY_VARIANT)
         want_dec = dict.fromkeys(DECODE_VARIANTS, 0)
         if adpcm_wire:
             want_dec[ad.decode_variant(4, adpcm.SERVE_BLOCK)] = steps
         print(f"{path}: {steps} device steps, fused_log_mel_patches launches {fe_l}, "
               f"adpcm_decode launches {dec_l}")
-        if steps < 1 or fe_l != {"mma": steps, "simt": 0} or dec_l != want_dec:
+        if steps < 1 or fe_l != steps or dec_l != want_dec:
             raise RuntimeError(f"{path}: launches {fe_l} / {dec_l} for {steps} device steps")
         return {"device_steps": steps, "frontend_launches": fe_l, "decode_launches": dec_l}
 
@@ -3555,19 +3539,14 @@ def main() -> int:
     ws = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(ws, ignore_errors=True)
     ff.LAUNCHES = 0
-    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     t0 = time.perf_counter()
     result = loop.fit(tcfg, workspace=ws)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     train_launches, counts = ff.LAUNCHES, dict(result.counts)
-    train_by_variant = dict(ff.LAUNCHES_BY_VARIANT)
     losses = [h["loss"] for h in result.history]
     print(f"training path: {counts['train_steps']} train steps + {counts['eval_batches']} eval "
-          f"batches in {fit_s:.2f} s, fused_log_mel_patches launches {train_launches} "
-          f"{train_by_variant}")
-    if train_by_variant != {"mma": train_launches, "simt": 0}:
-        raise RuntimeError(f"training launches not all on the mma variant: {train_by_variant}")
+          f"batches in {fit_s:.2f} s, fused_log_mel_patches launches {train_launches}")
     print(f"training path: losses {losses}; eval {result.eval_stats}")
     if counts["train_steps"] != tcfg.train.num_steps or result.interrupted:
         raise RuntimeError(f"fit ran {counts} of {tcfg.train.num_steps} steps")
@@ -3618,10 +3597,9 @@ def main() -> int:
     shutil.rmtree(ws_a, ignore_errors=True)
     ad.LAUNCHES = ff.LAUNCHES = 0
     ad.LAUNCHES_BY_VARIANT.update(scan=0, serial=0)
-    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     ares = loop.fit(acfg, workspace=ws_a)
     torch.cuda.synchronize()
-    acounts, a_decode, a_fe = dict(ares.counts), ad.LAUNCHES, dict(ff.LAUNCHES_BY_VARIANT)
+    acounts, a_decode, a_fe = dict(ares.counts), ad.LAUNCHES, ff.LAUNCHES
     a_dec_by_variant = dict(ad.LAUNCHES_BY_VARIANT)
     alosses = [h["loss"] for h in ares.history]
     print(f"adpcm4-staged training: {acounts['train_steps']} train steps + "
@@ -3644,7 +3622,7 @@ def main() -> int:
     print(f"adpcm_decode launches on the main path by variant: {dec_launches_by_variant}")
     if min(dec_launches_by_variant.values()) < 1:
         raise RuntimeError(f"a decode variant never ran on the main path: {dec_by_path}")
-    if a_fe != {"mma": acounts["train_steps"] + acounts["eval_batches"], "simt": 0}:
+    if a_fe != acounts["train_steps"] + acounts["eval_batches"]:
         raise RuntimeError(f"adpcm4 staging: front-end launches {a_fe} for {acounts}")
     if not alosses or not np.isfinite(alosses).all():
         raise RuntimeError(f"adpcm4 staging: non-finite loss {alosses}")
@@ -3672,7 +3650,8 @@ def main() -> int:
                                  "first_step_loss": stage_loss, "first_step_loss_err": stage_err}
 
     # 6b. the flagship program: entry()'s forward, its fidelity record, and
-    # full-width train steps at bench.py's batch on each front-end impl
+    # full-width train steps at bench.py's batch on each front-end impl (the
+    # step's time is the audioset-train-b256 cell's to measure)
     fcfg = flagship_config()
     fn, (fmodel, fwav) = entry(seed=SEED)
     probs = fn(fmodel, fwav)
@@ -3681,10 +3660,9 @@ def main() -> int:
         raise RuntimeError(f"flagship forward: shape {tuple(probs.shape)} or non-finite")
 
     ff.LAUNCHES = 0
-    ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
     probs_p = flagship_forward(flagship_config(overrides={"frontend.impl": "pallas"}))(fmodel, fwav)
     torch.cuda.synchronize()
-    fwd_launches = dict(ff.LAUNCHES_BY_VARIANT)
+    fwd_launches = ff.LAUNCHES
     probs_h = flagship_forward(flagship_config(overrides={"frontend.precision": "highest"}))(fmodel, fwav)
     fidelity = float((probs - probs_h).abs().max())
     with torch.inference_mode():
@@ -3697,7 +3675,7 @@ def main() -> int:
           f"|probs(default) - probs(highest)| {fidelity:.3e} (log-mel {logmel_err:.3e}); max "
           f"|probs(pallas) - probs(xla)| {pallas_err:.3e} (bf16 budget {BF16_SCORE_BUDGET:g}); "
           f"front-end launches {fwd_launches}")
-    if pallas_err > BF16_SCORE_BUDGET or fwd_launches != {"mma": 1, "simt": 0}:
+    if pallas_err > BF16_SCORE_BUDGET or fwd_launches != 1:
         raise RuntimeError(f"flagship forward pallas vs xla: {pallas_err}, launches {fwd_launches}")
     del fmodel, lm
 
@@ -3715,28 +3693,18 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ff.LAUNCHES = 0
-        ff.LAUNCHES_BY_VARIANT.update(mma=0, simt=0)
         flosses = [float(fstep(st, fwav, fy)[1]) for _ in range(FLAGSHIP_STEPS)]
         torch.cuda.synchronize()
-        f_launches = dict(ff.LAUNCHES_BY_VARIANT)
-        want = {"mma": FLAGSHIP_STEPS if impl == "pallas" else 0, "simt": 0}
+        f_launches = ff.LAUNCHES
+        want = FLAGSHIP_STEPS if impl == "pallas" else 0
         if f_launches != want or not np.isfinite(flosses).all():
             raise RuntimeError(f"flagship train steps, {impl}: losses {flosses}, front-end "
                                f"launches {f_launches} (want {want})")
-        host_ms = _host_median_ms(lambda: fstep(st, fwav, fy), reps=5, warmup=1)
-        event_ms = device_median_ms(lambda: fstep(st, fwav, fy), reps=5, inner=1, warmup=0)
         peak = torch.cuda.max_memory_allocated() / 1e9
         flagship[impl] = {"losses": flosses, "frontend_launches": f_launches,
-                          "step_ms_host": host_ms, "step_ms_events": event_ms,
-                          "clips_per_s_host": FLAGSHIP_BATCH / (host_ms / 1e3),
                           "peak_memory_gb": peak}
         print(f"flagship train step, {impl} front-end, batch {FLAGSHIP_BATCH} x 10 s: losses "
-              f"{flosses}; host clock {host_ms:.4f} ms, CUDA events {event_ms:.4f} ms, "
-              f"{FLAGSHIP_BATCH / (host_ms / 1e3):.1f} clips/s; peak memory {peak:.2f} GB; "
-              f"front-end launches {f_launches} {tag}")
-        if impl == "xla":  # the preset's own front-end: the profile
-            flagship["profile"] = _report_profile(
-                "flagship train step", 2, host_ms, _profile(lambda: fstep(st, fwav, fy), 2), tag)
+              f"{flosses}; peak memory {peak:.2f} GB; front-end launches {f_launches} {tag}")
         del m, st, fstep
         torch.cuda.empty_cache()
     f_loss_err = abs(flagship["pallas"]["losses"][0] - flagship["xla"]["losses"][0])
@@ -3756,19 +3724,17 @@ def main() -> int:
     record["train_leftovers"] = leftovers
 
     # 7. times
-    # the fused front-end at the serving and the training shape: both
-    # variants per mode, the mma variant at each frame tile that fits, and
+    # the fused front-end at the serving and the training shape: per mode,
+    # at the frame tile tile_frames picks and at each tile that fits, and
     # the plain version
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
     def time_frontend(w, fcfg):
         kp, np_ = ff.padded_sizes(fcfg)
         _, _, used, _, _, _ = ff._framing_plan(fcfg, w.shape[1])
-        t = {"ms": {v: {} for v in VARIANTS}, "plain_ms": {}, "tile": {}, "tile_ms": {}}
+        t = {"ms": {}, "plain_ms": {}, "tile": {}, "tile_ms": {}}
         for p in TOL:
-            for v in VARIANTS:
-                t["ms"][v][p] = device_median_ms(
-                    lambda p=p, v=v: ff.fused_log_mel_patches(w, fcfg, p, _variant=v))
+            t["ms"][p] = device_median_ms(lambda p=p: ff.fused_log_mel_patches(w, fcfg, p))
             t["plain_ms"][p] = device_median_ms(
                 lambda p=p: ff.fused_log_mel_patches_reference(w, fcfg, p))
             t["tile"][p] = ff.tile_frames(w.shape[0], used, kp, np_, p, sm_count)
@@ -3789,14 +3755,12 @@ def main() -> int:
               f"all on the f32 CUDA cores at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s "
               f"{fb['f32_cores_ms']:.4f} ms (the shares below use the per-mode bounds) {tag}")
         for p in TOL:
-            mma, simt, bnd = t["ms"]["mma"][p], t["ms"]["simt"][p], fb["bound_ms"][p]
+            ms, bnd = t["ms"][p], fb["bound_ms"][p]
             tiles = ", ".join(f"BM {bm} {ms:.4f}" for bm, ms in t["tile_ms"][p].items())
-            print(f"time: fused_log_mel_patches {p} {site} {shape}: mma {mma:.4f} ms (BM "
-                  f"{t['tile'][p]}), simt {simt:.4f} ms, plain version {t['plain_ms'][p]:.4f} "
-                  f"ms, bound {bnd:.4f} ms ({fb['bound_by'][p]}); share of bound mma "
-                  f"{bnd / mma:.4f}, simt {bnd / simt:.4f}; mma per tile: {tiles} {tag}")
-            if mma >= simt:
-                print(f"time: NOTE mma is not faster than simt: {p} {site} {shape}")
+            print(f"time: fused_log_mel_patches {p} {site} {shape}: {ms:.4f} ms (BM "
+                  f"{t['tile'][p]}), plain version {t['plain_ms'][p]:.4f} ms, bound {bnd:.4f} "
+                  f"ms ({fb['bound_by'][p]}); share of bound {bnd / ms:.4f}; per tile: {tiles} "
+                  f"{tag}")
 
     wav = (torch.randn((8, srv.chunk_samples), generator=gen) * 0.1).cuda()
     b, n = wav.shape
@@ -3804,14 +3768,14 @@ def main() -> int:
     sbound = _frontend_bound(ff, trimmed_spectral_bases, scfg.frontend, b, n)
     report_frontend("serving", wav, st, sbound)
     bound = sbound["bound_ms"]
-    kernel_ms, plain_ms = st["ms"]["mma"], st["plain_ms"][MAIN_PRECISION]
+    kernel_ms, plain_ms = st["ms"], st["plain_ms"][MAIN_PRECISION]
 
     tprec = tcfg.frontend.precision
     w64 = (torch.randn((bs, x1.shape[1]), generator=gen) * 0.1).cuda()
     tt = time_frontend(w64, tcfg.frontend)
     tbound = _frontend_bound(ff, trimmed_spectral_bases, tcfg.frontend, *w64.shape)
     report_frontend("training", w64, tt, tbound)
-    train_kernel_ms, train_plain_ms = tt["ms"]["mma"][tprec], tt["plain_ms"][tprec]
+    train_kernel_ms, train_plain_ms = tt["ms"][tprec], tt["plain_ms"][tprec]
 
     # the probe kernels, at each timed case, beside the library call; each
     # call reads the next of enough copies of its input to fill the L2 twice,
@@ -3916,24 +3880,21 @@ def main() -> int:
                   f"{serving[f'{v}_ms'] / floor:.4f} x it {tag}")
     record.update(adpcm_ms=adpcm_ms, adpcm_floor_ms=adpcm_floor_ms)
 
-    # the mma front-end at the flagship's site (bench.py's batch, "default")
+    # the front-end kernel at the flagship's site (bench.py's batch, "default")
     fw = (torch.randn((FLAGSHIP_BATCH, 10 * sr), generator=gen) * 0.1).cuda()
     fprec = fcfg.frontend.precision
     fbound = _frontend_bound(ff, trimmed_spectral_bases, fcfg.frontend, *fw.shape)
     flagship_fe = {"ms": device_median_ms(lambda: ff.fused_log_mel_patches(fw, fcfg.frontend,
                                                                            fprec)),
-                   "simt_ms": device_median_ms(lambda: ff.fused_log_mel_patches(
-                       fw, fcfg.frontend, fprec, _variant="simt")),
                    "plain_ms": device_median_ms(lambda: ff.fused_log_mel_patches_reference(
                        fw, fcfg.frontend, fprec)),
                    "torch_ops_ms": device_median_ms(lambda: fe.waveform_to_patches(
                        fw, fcfg.frontend)),
                    "bound_ms": fbound["bound_ms"][fprec], "bound_by": fbound["bound_by"][fprec],
                    "precision": fprec, "shape": list(fw.shape)}
-    print(f"time: fused_log_mel_patches {fprec} flagship {list(fw.shape)}: mma "
-          f"{flagship_fe['ms']:.4f} ms, simt {flagship_fe['simt_ms']:.4f} ms, plain version "
-          f"{flagship_fe['plain_ms']:.4f} ms, torch-ops front-end (impl xla) "
-          f"{flagship_fe['torch_ops_ms']:.4f} ms, bound {flagship_fe['bound_ms']:.4f} ms "
+    print(f"time: fused_log_mel_patches {fprec} flagship {list(fw.shape)}: "
+          f"{flagship_fe['ms']:.4f} ms, plain version {flagship_fe['plain_ms']:.4f} ms, "
+          f"torch-ops front-end (impl xla) {flagship_fe['torch_ops_ms']:.4f} ms, bound {flagship_fe['bound_ms']:.4f} ms "
           f"({flagship_fe['bound_by']}); {flagship_fe['bound_ms'] / flagship_fe['ms']:.4f} of "
           f"bound {tag}")
     record["flagship_frontend"] = flagship_fe
@@ -4028,7 +3989,7 @@ def main() -> int:
                   train_clips_per_s=clips_s, train_step_profile=step_prof,
                   train_frontend={"ms": train_kernel_ms, "plain_ms": train_plain_ms,
                                   "precision": tprec, "shape": list(w64.shape), **tbound},
-                  frontend_launches={"serve": serve_by_variant, "train": train_by_variant},
+                  frontend_launches={"serve": serve_launches, "train": train_launches},
                   peak_memory_gb=peak_gb, adpcm4_tick_ms=atick_med,
                   adpcm4_tick_profile=atick_prof)
 
@@ -4068,28 +4029,24 @@ def main() -> int:
 
     main_probe = _probe_key(*PROBE_CASES[0][:3])
     # the front-end kernel's launches on every path that takes it
-    fe_by_path = {"serve": serve_by_variant, "train": train_by_variant,
-                  "serve_adpcm4": {"mma": adpcm_serve["adpcm4"]["frontend_launches"], "simt": 0},
-                  "serve_adpcm2": {"mma": adpcm_serve["adpcm2"]["frontend_launches"], "simt": 0},
+    fe_by_path = {"serve": serve_launches, "train": train_launches,
+                  "serve_adpcm4": adpcm_serve["adpcm4"]["frontend_launches"],
+                  "serve_adpcm2": adpcm_serve["adpcm2"]["frontend_launches"],
                   **{p: r["frontend_launches"] for p, r in new_paths.items()},
                   "train_adpcm4": a_fe, **leftover_fe, "flagship_forward": fwd_launches,
                   "flagship_train": flagship["pallas"]["frontend_launches"], **phase8_fe,
                   **phase9_fe, **phase10_fe, **phase11_fe}
     kernels = [{
         "name": "fused_log_mel_patches",
-        "variant": "mma",
         "route": "cuda",
         "source": "mla_tpu_torch/csrc/fused_frontend.cu",
         "replaces": "mla_tpu/ops/pallas_frontend.py:154",
-        "launches": sum(v["mma"] + v["simt"] for v in fe_by_path.values()),
-        "launches_by_path": {k: v["mma"] + v["simt"] for k, v in fe_by_path.items()},
-        "launches_by_variant": {v: sum(p[v] for p in fe_by_path.values()) for v in VARIANTS},
-        "max_abs_err": errs["mma"][f"serve [8, 77120] {MAIN_PRECISION}"],
-        "max_abs_err_by_case": errs["mma"],
-        "simt_max_abs_err_by_case": errs["simt"],
+        "launches": sum(fe_by_path.values()),
+        "launches_by_path": fe_by_path,
+        "max_abs_err": errs[f"serve [8, 77120] {MAIN_PRECISION}"],
+        "max_abs_err_by_case": errs,
         "ms": kernel_ms[MAIN_PRECISION],
         "kernel_ms": kernel_ms,
-        "simt_ms": st["ms"]["simt"],
         "tile": st["tile"],
         "kernel_ms_by_tile": st["tile_ms"],
         "plain_ms": plain_ms,
@@ -4107,8 +4064,8 @@ def main() -> int:
                   "plain_ms": train_plain_ms, "bound_ms": tbound["bound_ms"][tprec],
                   "bound_ms_f32_cores": tbound["f32_cores_ms"],
                   "bound_by": tbound["bound_by"][tprec],
-                  "max_abs_err": errs["mma"][f"train [64, 64000] {tprec}"],
-                  "kernel_ms": tt["ms"]["mma"], "simt_ms": tt["ms"]["simt"],
+                  "max_abs_err": errs[f"train [64, 64000] {tprec}"],
+                  "kernel_ms": tt["ms"],
                   "plain_ms_by_precision": tt["plain_ms"], "tile": tt["tile"],
                   "kernel_ms_by_tile": tt["tile_ms"],
                   "bound_ms_by_precision": tbound["bound_ms"]},

@@ -49,13 +49,12 @@
 // swizzled shared tile and each segment's lanes store consecutive float4s.
 // A block longer than 32 kK samples is decoded in passes of 32 kK, the state
 // carried from pass to pass.
-// What holds it back (measured on an H100 with ops/adpcm_phases.py, which
-// launches it without its scans or its stores and stamps its clock; PERF.md
-// has the figures): composing two clamped
-// maps per sample and the scan rounds are about twice the serial decode's
-// integer operations, which issue at half the FP32 rate, so the training
-// site is bound by integer issue, not by bytes; each launch also waits
-// ~1 us on its first global load (the step table) before its barrier,
+// What holds it back (measured on an H100 by launching it without its scans
+// or its stores and stamping its clock; PERF.md has the figures): composing
+// two clamped maps per sample and the scan rounds are about twice the serial
+// decode's integer operations, which issue at half the FP32 rate, so the
+// training site is bound by integer issue, not by bytes; each launch also
+// waits ~1 us on its first global load (the step table) before its barrier,
 // which at the serving site is a large share of a few-us kernel.
 //
 // adpcm_decode, the serial kernel: one thread per self-contained wire block
@@ -227,27 +226,6 @@ constexpr int kRing = 4;       // steps a warp has in flight: its slots of share
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kUnbounded = 1 << 30;  // the identity map's bounds: finite, so l + a cannot overflow
 
-// A step's phases, as a mask: the port launches kAllPhases; the phase probe
-// (ops/adpcm_phases.py) drops the scans or the stores, or adds kStamps:
-// lane 0 of each warp of thread block 0 writes its clock into g_stamps at
-// entry, after the barrier, and at four points of each of its first
-// kStampSteps steps.
-enum Phase { kScans = 1, kStores = 2, kAllPhases = 3, kStamps = 4 };
-constexpr int kStampSteps = 4;
-__device__ unsigned long long g_stamps[kScanWarps][2 + 4 * kStampSteps];
-
-template <int kPhases>
-__device__ __forceinline__ void stamp(int slot) {
-  if ((kPhases & kStamps) && blockIdx.x == 0 && (threadIdx.x & 31) == 0)
-    g_stamps[threadIdx.x >> 5][slot] = clock64();
-}
-
-// point p (0..3) of step i
-template <int kPhases>
-__device__ __forceinline__ void stamp_step(int i, int p) {
-  if (i < kStampSteps) stamp<kPhases>(2 + 4 * i + p);
-}
-
 // x -> min(max(x + a, lo), hi), lo <= hi
 struct ClampAdd {
   int a, lo, hi;
@@ -353,8 +331,8 @@ __device__ __forceinline__ void read_codes(const uint8_t* codes, int s0, int val
 // read_codes. coalesce (the same for the whole warp): every lane keeps all
 // its kK samples at a 16-byte-aligned dst, so the warp's samples go out
 // through `tile` (its kK floats per lane in shared memory) as float4 stores
-// that a segment's lanes make to consecutive addresses. kPhases: as Phase.
-template <int kBits, bool kGuard, int kPhases>
+// that a segment's lanes make to consecutive addresses.
+template <int kBits, bool kGuard>
 __device__ __forceinline__ void decode_pass(const int (&code)[kK], int valid, const int* s_delta,
                                             const int* s_adapt, int seg_lane, int width,
                                             bool carry, int& index, int& pred, float* dst,
@@ -368,7 +346,7 @@ __device__ __forceinline__ void decode_pass(const int (&code)[kK], int valid, co
     adapt[t] = s_adapt[code[t]];
     if (!kGuard || t < valid) f = then(f, {adapt[t], 0, 88});
   }
-  if (kPhases & kScans) f = segment_scan(f, seg_lane, width);
+  f = segment_scan(f, seg_lane, width);
   // 2. the walk: each sample's step index gives its signed delta
   int x = lane_start(f, index, seg_lane, width);
   int delta[kK];
@@ -381,7 +359,7 @@ __device__ __forceinline__ void decode_pass(const int (&code)[kK], int valid, co
   }
   // 3. the predictor scan, then the walk that gives each output: p / 32768
   // on the FP32 pipe, exactly (12582912 + p is exact in f32's 24 bits)
-  if (kPhases & kScans) g = segment_scan(g, seg_lane, width);
+  g = segment_scan(g, seg_lane, width);
   int p = lane_start(g, pred, seg_lane, width);
   float v[kK];
 #pragma unroll
@@ -390,9 +368,7 @@ __device__ __forceinline__ void decode_pass(const int (&code)[kK], int valid, co
     v[t] = fmaf(__int_as_float(0x4B400000 + p), 1.0f / 32768.0f, -384.0f);
   }
   // the samples that out keeps: whole vectors where it can
-  if (!(kPhases & kStores)) {
-    if (v[0] == 1234.5f && count > 0) dst[0] = v[kK - 1];  // never true: keeps the work alive
-  } else if (!kGuard && coalesce) {
+  if (!kGuard && coalesce) {
     // lane l's float4 p sits in slot p ^ (l / kLanes128 % kParts) of its
     // row: the 8 lanes of each quarter-warp hit 8 distinct 16-byte bank
     // groups when they write a slot, and when they read a segment's
@@ -440,7 +416,7 @@ __device__ __forceinline__ void decode_pass(const int (&code)[kK], int valid, co
 // warp's task. The grid is at most what the SMs hold at once; each warp
 // walks its tasks (and a long block's passes) in steps, through a ring of
 // kRing slots that asynchronous copies fill kRing steps ahead.
-template <int kBits, int kPhases>
+template <int kBits>
 __global__ void __launch_bounds__(kScanWarps * 32, 3) adpcm_decode_scan(
     const uint8_t* __restrict__ wire, float* __restrict__ out, int64_t units, int nb,
     int block, int n, int width) {
@@ -460,7 +436,6 @@ __global__ void __launch_bounds__(kScanWarps * 32, 3) adpcm_decode_scan(
   // coalesced load, issued first
   const int st = threadIdx.x < 89 ? kStepTable[threadIdx.x] : 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  stamp<kPhases>(0);
   const int per_warp = 32 / width, seg = lane / width, seg_lane = lane % width;
   const int cb = block * kBits / 8;
   const int64_t wb = cb + 3;
@@ -528,7 +503,6 @@ __global__ void __launch_bounds__(kScanWarps * 32, 3) adpcm_decode_scan(
     s_adapt[threadIdx.x] = kBits == 4 ? (m < 4 ? -1 : 2 * m - 6) : 3 * m - 1;
   }
   __syncthreads();  // the last block-wide barrier: a warp may leave once its tasks are done
-  stamp<kPhases>(1);
 
   // this lane's block is block j of row `row` of out, and moves on by
   // `stride` tasks, (step_rows, step_j), from one task to the next
@@ -551,7 +525,6 @@ __global__ void __launch_bounds__(kScanWarps * 32, 3) adpcm_decode_scan(
 
     for (int c0 = 0; c0 < block; c0 += pass, ++i) {
       const int r = i % kRing;
-      stamp_step<kPhases>(i, 0);
       // step i's group is done once no more than the kRing - 1 after it are
       // pending, for this lane's copies; the __syncwarp, for every lane's
       asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
@@ -574,24 +547,19 @@ __global__ void __launch_bounds__(kScanWarps * 32, 3) adpcm_decode_scan(
         read_codes<kBits, false>(codes, s0, valid, code);
       else
         read_codes<kBits, true>(codes, s0, valid, code);
-      stamp_step<kPhases>(i, 1);
       __syncwarp();  // every lane has read slot r: refill it kRing steps ahead
       fetch(i + kRing);
-      stamp_step<kPhases>(i, 2);
 
       const int room = keep - c0 - s0, count = valid < room ? valid : room;
       float* dst = out + base + c0 + s0;
       const bool coalesce =
           __all_sync(kFull, count >= kK && (reinterpret_cast<uintptr_t>(dst) & 15) == 0);
       if (whole)
-        decode_pass<kBits, false, kPhases>(code, valid, s_delta, s_adapt, seg_lane, width,
-                                           !one_pass, index, pred, dst, count, coalesce,
-                                           s_tile[warp]);
+        decode_pass<kBits, false>(code, valid, s_delta, s_adapt, seg_lane, width, !one_pass,
+                                  index, pred, dst, count, coalesce, s_tile[warp]);
       else
-        decode_pass<kBits, true, kPhases>(code, valid, s_delta, s_adapt, seg_lane, width,
-                                          !one_pass, index, pred, dst, count, coalesce,
-                                          s_tile[warp]);
-      stamp_step<kPhases>(i, 3);
+        decode_pass<kBits, true>(code, valid, s_delta, s_adapt, seg_lane, width, !one_pass,
+                                 index, pred, dst, count, coalesce, s_tile[warp]);
     }
     row += step_rows;
     j += step_j;
@@ -601,7 +569,7 @@ __global__ void __launch_bounds__(kScanWarps * 32, 3) adpcm_decode_scan(
 
 // The thread blocks one launch of a scan kernel takes: one per group of
 // kScanWarps tasks, at most as many as the card's SMs hold at once.
-template <int kBits, int kPhases>
+template <int kBits>
 int launch_scan(const uint8_t* wire, float* out, int64_t units, int nb, int block, int n,
                 int width, int64_t groups, cudaStream_t s) {
   static int resident = 0;  // per instance: thread blocks the whole card holds at once
@@ -611,19 +579,18 @@ int launch_scan(const uint8_t* wire, float* out, int64_t units, int nb, int bloc
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, adpcm_decode_scan<kBits, kPhases>, kScanWarps * 32, 0);
+          &per_sm, adpcm_decode_scan<kBits>, kScanWarps * 32, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per_sm * sms <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
     resident = per_sm * sms;
   }
   const int grid = static_cast<int>(groups < resident ? groups : resident);
-  adpcm_decode_scan<kBits, kPhases><<<grid, kScanWarps * 32, 0, s>>>(wire, out, units, nb, block,
-                                                                     n, width);
+  adpcm_decode_scan<kBits><<<grid, kScanWarps * 32, 0, s>>>(wire, out, units, nb, block, n,
+                                                            width);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The scan kernel's checks (those of mla_adpcm_decode), geometry and launch.
-template <int kPhases>
 int decode_scan(const uint8_t* wire, float* out, int64_t units, int nb, int block, int n,
                 int bits, void* stream) {
   if ((bits != 4 && bits != 2) || block <= 0 || block % (8 / bits) || nb <= 0 || units <= 0 ||
@@ -635,8 +602,8 @@ int decode_scan(const uint8_t* wire, float* out, int64_t units, int nb, int bloc
   const int per_warp = 32 / width;
   const int64_t groups = ((units + per_warp - 1) / per_warp + kScanWarps - 1) / kScanWarps;
   auto s = static_cast<cudaStream_t>(stream);
-  return bits == 4 ? launch_scan<4, kPhases>(wire, out, units, nb, block, n, width, groups, s)
-                   : launch_scan<2, kPhases>(wire, out, units, nb, block, n, width, groups, s);
+  return bits == 4 ? launch_scan<4>(wire, out, units, nb, block, n, width, groups, s)
+                   : launch_scan<2>(wire, out, units, nb, block, n, width, groups, s);
 }
 
 }  // namespace
@@ -662,5 +629,5 @@ extern "C" int mla_adpcm_decode(const uint8_t* wire, float* out, int64_t units, 
 // The scan kernel, with the same arguments and checks.
 extern "C" int mla_adpcm_decode_scan(const uint8_t* wire, float* out, int64_t units, int nb,
                                      int block, int n, int bits, void* stream) {
-  return decode_scan<kAllPhases>(wire, out, units, nb, block, n, bits, stream);
+  return decode_scan(wire, out, units, nb, block, n, bits, stream);
 }

@@ -8,12 +8,10 @@
 // bins as two products (re, im), sqrt(re^2 + im^2), the bins x mel product
 // in f32, log(x + log_offset).
 //
-// Two variants, one C entry point each:
-//   fused_log_mel_mma   the main path's kernel: the DFT on the tensor cores
-//                       with mma.sync (below);
-//   fused_log_mel_simt  the first design: every product as f32 FMAs on the
-//                       CUDA cores, one thread per bin for 16 frames. Kept
-//                       so that both can be timed in one run.
+// One kernel, one C entry point (mla_fused_log_mel_mma): the DFT on the
+// tensor cores with mma.sync (below). The first design, every product as
+// f32 FMAs on the CUDA cores, lost every measurement to it and is gone
+// (PERF.md, section 6).
 //
 // What bounds the work. At the serving shape [8, 77120] (3840 frames, window
 // 400, 240 mel-active bins, 64 mel bins) the DFT is 2 * 2 * 3840 * 400 * 240
@@ -68,10 +66,9 @@
 //     every mode at the smallest shared-memory cost, and each A fragment's
 //     split is paid once for 2 * kNT (x3) products.
 //   - Mel product and log: f32 FMAs on the CUDA cores, summed over bins in
-//     order as the first design does. A thread owns one mel bin (so at most
-//     64 mel bins) for BM / 4 frames, so one filterbank load feeds BM / 4
-//     FMAs and the magnitudes are 16-byte shared loads that a warp
-//     broadcasts. The filterbank is first copied into the shared memory the
+//     order. A thread owns one mel bin (so at most 64 mel bins) for BM / 4
+//     frames, so one filterbank load feeds BM / 4 FMAs and the magnitudes
+//     are 16-byte shared loads that a warp broadcasts. The filterbank is first copied into the shared memory the
 //     frames and rings no longer need: with the tile's shared memory the L1
 //     cannot hold it, and reading it from L2 stalled every bin.
 //   - Frames are staged 16 frames per pass, so each thread keeps 16 loads
@@ -87,14 +84,13 @@
 //     beside the library as <library>.log and chip_smoke.py prints it), at
 //     BM 64 / 32 / 16: "default" 104 / 80 / 64, "bf16x3" 127 / 80 / 64,
 //     "highest" 123 / 87 / 64. No spills, but for 4 bytes in "default" at
-//     BM 32 and 16. The SIMT variant: 64 ("highest", "default"), 86
-//     ("bf16x3").
-//   - Where the time goes (ops/fused_frontend_phases.py on an H100): at
-//     [64, 64000] "highest", BM 64, the DFT takes ~3/4 of the kernel, at
-//     about a third of the TF32 rate; a block of 8 warps fills an SM's
-//     shared memory, so 2 warps per scheduler issue the products, the
+//     BM 32 and 16.
+//   - Where the time goes (PERF.md, section 6; timed phase by phase on an
+//     H100): at [64, 64000] "highest", BM 64, the DFT takes ~3/4 of the
+//     kernel, at about a third of the TF32 rate; a block of 8 warps fills an
+//     SM's shared memory, so 2 warps per scheduler issue the products, the
 //     operand splits and the shared loads (which of these stalls, the
-//     probe cannot say). The mel product takes most of the rest: a shared
+//     timing cannot say). The mel product takes most of the rest: a shared
 //     load for every 3 FMAs.
 //     wgmma, warp specialisation and smaller tiles per block are the next
 //     steps (PERF.md).
@@ -111,10 +107,6 @@ constexpr int kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 enum Mode { kF32 = 0, kBf16 = 1, kBf16x3 = 2 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel* kernel, size_t smem) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -122,10 +114,6 @@ cudaError_t set_smem(Kernel* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
-
-// ---------------------------------------------------------------------------
-// The tensor-core variant.
-// ---------------------------------------------------------------------------
 
 constexpr int kNT = 2;  // n-tiles of 8 bins per warp group
 
@@ -196,10 +184,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// A block's phases, as a mask: the port launches all of them; the phase
-// probe (ops/fused_frontend_phases.py) times each alone and in order.
-enum Phase { kStage = 1, kDft = 2, kMel = 4, kAllPhases = 7 };
-
 // grid (ceil(used_frames / BM), batch); block kThreads.
 // wav [batch, n_samples]; basis: the packed B operand, [kp / KS, np / 8, 32
 // lanes, V uint4] (ops/fused_frontend.py::pack_dft_bases); mel_w [np, n_mel]
@@ -208,7 +192,7 @@ enum Phase { kStage = 1, kDft = 2, kMel = 4, kAllPhases = 7 };
 // warp's B ring [kStages][kNT][V][32 lanes] uint4; after the DFT the frames
 // and rings hold the mel filterbank, a chunk of bins at a time.
 // Needs 4 * n_mel <= kThreads (n_mel <= 64).
-template <int MODE, int MF, int PHASES = kAllPhases>
+template <int MODE, int MF>
 __global__ void __launch_bounds__(kThreads)
     fused_log_mel_mma_kernel(const float* __restrict__ wav, const uint4* __restrict__ basis,
                              const float* __restrict__ mel_w, float* __restrict__ out,
@@ -235,7 +219,7 @@ __global__ void __launch_bounds__(kThreads)
   // 1. Stage frames t0 .. t0 + BM - 1 as f32, U frames per pass so that U
   //    loads are in flight per thread; frames past used_frames and taps
   //    past the window are zero.
-  for (int f0 = 0; f0 < BM && (PHASES & kStage); f0 += U)
+  for (int f0 = 0; f0 < BM; f0 += U)
     for (int k = threadIdx.x; k < kp; k += kThreads) {
       float v[U];
 #pragma unroll
@@ -253,7 +237,7 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, tq = lane & 3;
   const int n8 = np_ / 8, steps = kp / KS;
   const int64_t step_stride = static_cast<int64_t>(n8) * 32 * V;  // uint4 per k-step
-  for (int grp = warp; grp < n8 / kNT && (PHASES & kDft); grp += kWarps) {
+  for (int grp = warp; grp < n8 / kNT; grp += kWarps) {
     float re[MF][kNT][4], im[MF][kNT][4];
 #pragma unroll
     for (int mf = 0; mf < MF; ++mf)
@@ -376,7 +360,7 @@ __global__ void __launch_bounds__(kThreads)
   float acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  for (int j0 = 0; j0 < np_ && (PHASES & kMel); j0 += jc) {
+  for (int j0 = 0; j0 < np_; j0 += jc) {
     const int rows = min(jc, np_ - j0);
     if (j0 > 0) __syncthreads();  // the last chunk's reads are done
     {
@@ -412,7 +396,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  if (active && (PHASES & kMel)) {
+  if (active) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int t = t0 + f0 + r;
@@ -423,7 +407,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int MODE, int MF, int PHASES = kAllPhases>
+template <int MODE, int MF>
 cudaError_t launch_mma(const float* wav, const void* basis, const float* mel_w, float* out,
                        int batch, int n_samples, int used_frames, int window, int kp, int hop,
                        int np_, int n_mel, float log_offset, cudaStream_t stream) {
@@ -432,10 +416,10 @@ cudaError_t launch_mma(const float* wav, const void* basis, const float* mel_w, 
   const size_t smem =
       sizeof(float) * static_cast<size_t>(BM) * (kp + (MODE == kF32 ? 4 : 8) + np_ + 8) +
       sizeof(uint4) * kWarps * ring_stages<MODE>() * kNT * V * 32;
-  cudaError_t err = set_smem(fused_log_mel_mma_kernel<MODE, MF, PHASES>, smem);
+  cudaError_t err = set_smem(fused_log_mel_mma_kernel<MODE, MF>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((used_frames + BM - 1) / BM, batch);
-  fused_log_mel_mma_kernel<MODE, MF, PHASES><<<grid, kThreads, smem, stream>>>(
+  fused_log_mel_mma_kernel<MODE, MF><<<grid, kThreads, smem, stream>>>(
       wav, static_cast<const uint4*>(basis), mel_w, out, n_samples, used_frames, window, kp,
       hop, np_, n_mel, log_offset);
   return cudaGetLastError();
@@ -461,162 +445,12 @@ cudaError_t launch_mma_bm(int bm, const float* wav, const void* basis, const flo
   }
 }
 
-// ---------------------------------------------------------------------------
-// The SIMT variant (the first design): f32 FMAs on the CUDA cores. Each
-// thread owns one DFT bin for a tile's kSimtFrames frames, so one pair of
-// basis loads feeds 2 * kSimtFrames FMAs; the frame operand is a float4
-// shared load that the warp broadcasts. The operands are rounded (and, for
-// bf16x3, split) at staging, so the products reproduce each mode exactly.
-// ---------------------------------------------------------------------------
-
-constexpr int kSimtFrames = 16;
-
-// Accumulate one basis column against the tile's frames over 4 taps.
-template <int MODE>
-__device__ __forceinline__ void accumulate(const float* __restrict__ xa,
-                                           const float* __restrict__ xb,
-                                           int kp, int k, const float c[4],
-                                           const float s[4], float re[kSimtFrames],
-                                           float im[kSimtFrames]) {
-  if (MODE == kBf16x3) {
-    float ch[4], cl[4], sh[4], sl[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      ch[u] = bf16_round(c[u]);
-      cl[u] = bf16_round(c[u] - ch[u]);
-      sh[u] = bf16_round(s[u]);
-      sl[u] = bf16_round(s[u] - sh[u]);
-    }
-#pragma unroll
-    for (int f = 0; f < kSimtFrames; ++f) {
-      const float4 h4 = *reinterpret_cast<const float4*>(xa + f * kp + k);
-      const float4 l4 = *reinterpret_cast<const float4*>(xb + f * kp + k);
-      const float h[4] = {h4.x, h4.y, h4.z, h4.w};
-      const float l[4] = {l4.x, l4.y, l4.z, l4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        re[f] = fmaf(h[u], ch[u], re[f]);
-        re[f] = fmaf(h[u], cl[u], re[f]);
-        re[f] = fmaf(l[u], ch[u], re[f]);
-        im[f] = fmaf(h[u], sh[u], im[f]);
-        im[f] = fmaf(h[u], sl[u], im[f]);
-        im[f] = fmaf(l[u], sh[u], im[f]);
-      }
-    }
-  } else {
-    float cr[4], sr[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      cr[u] = MODE == kBf16 ? bf16_round(c[u]) : c[u];
-      sr[u] = MODE == kBf16 ? bf16_round(s[u]) : s[u];
-    }
-#pragma unroll
-    for (int f = 0; f < kSimtFrames; ++f) {
-      const float4 x4 = *reinterpret_cast<const float4*>(xa + f * kp + k);
-      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        re[f] = fmaf(x[u], cr[u], re[f]);
-        im[f] = fmaf(x[u], sr[u], im[f]);
-      }
-    }
-  }
-}
-
-// grid (ceil(used_frames / kSimtFrames), batch); block kThreads.
-// wav [batch, n_samples]; cos_b, sin_b [kp, n_bins] with rows >= window zero;
-// mel_w [n_bins, n_mel]; out [batch, used_frames, n_mel].
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-    fused_log_mel_simt_kernel(const float* __restrict__ wav,
-                              const float* __restrict__ cos_b,
-                              const float* __restrict__ sin_b,
-                              const float* __restrict__ mel_w,
-                              float* __restrict__ out, int n_samples,
-                              int used_frames, int window, int kp, int hop,
-                              int n_bins, int n_mel, float log_offset) {
-  extern __shared__ float4 smem4[];
-  float* xa = reinterpret_cast<float*>(smem4);  // frames (hi part for bf16x3)
-  float* xb = xa + kSimtFrames * kp;            // lo part, bf16x3 only
-  float* mag = xa + (MODE == kBf16x3 ? 2 : 1) * kSimtFrames * kp;
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kSimtFrames;
-  const float* x = wav + static_cast<int64_t>(b) * n_samples;
-
-  for (int i = threadIdx.x; i < kSimtFrames * kp; i += blockDim.x) {
-    const int f = i / kp;
-    const int k = i - f * kp;
-    const int t = t0 + f;
-    float v = 0.f;
-    if (t < used_frames && k < window) v = x[static_cast<int64_t>(t) * hop + k];
-    if (MODE == kF32) {
-      xa[i] = v;
-    } else if (MODE == kBf16) {
-      xa[i] = bf16_round(v);
-    } else {
-      const float hi = bf16_round(v);
-      xa[i] = hi;
-      xb[i] = bf16_round(v - hi);
-    }
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < n_bins; j += blockDim.x) {
-    float re[kSimtFrames], im[kSimtFrames];
-#pragma unroll
-    for (int f = 0; f < kSimtFrames; ++f) re[f] = im[f] = 0.f;
-    for (int k = 0; k < kp; k += 4) {
-      float c[4], s[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        c[u] = __ldg(cos_b + static_cast<int64_t>(k + u) * n_bins + j);
-        s[u] = __ldg(sin_b + static_cast<int64_t>(k + u) * n_bins + j);
-      }
-      accumulate<MODE>(xa, xb, kp, k, c, s, re, im);
-    }
-#pragma unroll
-    for (int f = 0; f < kSimtFrames; ++f)
-      mag[f * n_bins + j] = sqrtf(re[f] * re[f] + im[f] * im[f]);
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < kSimtFrames * n_mel; i += blockDim.x) {
-    const int f = i / n_mel;
-    const int m = i - f * n_mel;
-    const int t = t0 + f;
-    if (t >= used_frames) continue;
-    const float* row = mag + f * n_bins;
-    float acc = 0.f;
-    for (int j = 0; j < n_bins; ++j) acc = fmaf(row[j], __ldg(mel_w + j * n_mel + m), acc);
-    out[(static_cast<int64_t>(b) * used_frames + t) * n_mel + m] = logf(acc + log_offset);
-  }
-}
-
-template <int MODE>
-cudaError_t launch_simt(const float* wav, const float* cos_b, const float* sin_b,
-                        const float* mel_w, float* out, int batch, int n_samples,
-                        int used_frames, int window, int kp, int hop, int n_bins,
-                        int n_mel, float log_offset, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((MODE == kBf16x3 ? 2 : 1) * kSimtFrames * kp + kSimtFrames * n_bins);
-  cudaError_t err = set_smem(fused_log_mel_simt_kernel<MODE>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((used_frames + kSimtFrames - 1) / kSimtFrames, batch);
-  fused_log_mel_simt_kernel<MODE><<<grid, kThreads, smem, stream>>>(
-      wav, cos_b, sin_b, mel_w, out, n_samples, used_frames, window, kp, hop,
-      n_bins, n_mel, log_offset);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// C entry points, bound with ctypes. Each returns a cudaError_t (0 =
-// launched). mode is 0 = "highest" (f32 / 3xTF32), 1 = "default" (one bf16
-// pass), 2 = "bf16x3".
-
-// The tensor-core variant. kp (taps) and np (bins) are the packed basis's
-// padded sizes, multiples of 16; bm is the frame tile, 16, 32 or 64.
+// C entry point, bound with ctypes. Returns a cudaError_t (0 = launched).
+// mode is 0 = "highest" (f32 / 3xTF32), 1 = "default" (one bf16 pass),
+// 2 = "bf16x3". kp (taps) and np (bins) are the packed basis's padded sizes,
+// multiples of 16; bm is the frame tile, 16, 32 or 64.
 extern "C" int mla_fused_log_mel_mma(const float* wav, const void* basis, const float* mel_w,
                                      float* out, int batch, int n_samples, int used_frames,
                                      int window, int kp, int hop, int np_, int n_mel,
@@ -636,32 +470,6 @@ extern "C" int mla_fused_log_mel_mma(const float* wav, const void* basis, const 
     case kBf16x3:
       return launch_mma_bm<kBf16x3>(bm, wav, basis, mel_w, out, batch, n_samples,
                                     used_frames, window, kp, hop, np_, n_mel, log_offset, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The SIMT variant. kp is the window rounded up to a multiple of 4 (the
-// f32 bases' row count).
-extern "C" int mla_fused_log_mel_simt(const float* wav, const float* cos_b,
-                                      const float* sin_b, const float* mel_w,
-                                      float* out, int batch, int n_samples,
-                                      int used_frames, int window, int kp, int hop,
-                                      int n_bins, int n_mel, float log_offset,
-                                      int mode, void* stream) {
-  if (kp % 4 != 0 || kp < window || batch < 1 || used_frames < 1 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kF32:
-      return launch_simt<kF32>(wav, cos_b, sin_b, mel_w, out, batch, n_samples, used_frames,
-                               window, kp, hop, n_bins, n_mel, log_offset, s);
-    case kBf16:
-      return launch_simt<kBf16>(wav, cos_b, sin_b, mel_w, out, batch, n_samples, used_frames,
-                                window, kp, hop, n_bins, n_mel, log_offset, s);
-    case kBf16x3:
-      return launch_simt<kBf16x3>(wav, cos_b, sin_b, mel_w, out, batch, n_samples,
-                                  used_frames, window, kp, hop, n_bins, n_mel, log_offset, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

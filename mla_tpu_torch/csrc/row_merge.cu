@@ -23,7 +23,7 @@
 // both smaller shapes; it stays as row_merge_generic.
 //
 // What the design does about it (times: H100 80GB HBM3 at 700 W,
-// chip_smoke.py and row_merge_sweep.py; PERF.md has them all):
+// chip_smoke.py and a launch-shape sweep; PERF.md has them all):
 // - scale2: 16-byte evict-first accesses (__ldcs / __stcs on float4), kVecs
 //   per thread, all loaded before any is stored. A scalar head brings x to a
 //   16-byte boundary and a scalar tail finishes the last < 4 elements; where
@@ -63,7 +63,7 @@
 namespace {
 
 // scale2: threads per block, float4s per thread and grid cap in waves of
-// resident blocks (0: none), from the sweep (row_merge_sweep.py)
+// resident blocks (0: none), from the launch-shape sweep (PERF.md)
 constexpr int kScale2Threads = 256;
 constexpr int kScale2Vecs = 1;
 constexpr int kScale2Waves = 0;

@@ -2,27 +2,22 @@
 in one hand-written CUDA kernel (``csrc/fused_frontend.cu``), the port of
 ``mla_tpu/ops/pallas_frontend.py::fused_log_mel_patches``.
 
-The kernel frames straight from the waveform, so unlike the TPU kernel it
-needs no residue-class copies of it: device traffic is the waveform in
-once and the log-mel rows out once. The .cu file's header says what bounds
-it and how it is laid out.
-
-Two variants of the kernel: ``mma`` (the DFT on the tensor cores with
-mma.sync, the only one the main path launches) and ``simt`` (the first
-design, f32 FMAs on the CUDA cores), reachable through the private
-``_variant`` argument so that both can be timed in one run.
+The kernel frames straight from the waveform and takes the DFT on the
+tensor cores with mma.sync. Unlike the TPU kernel it needs no residue-class
+copies of the waveform: device traffic is the waveform in once and the
+log-mel rows out once. The .cu file's header says what bounds it and how it
+is laid out.
 
 ``fused_log_mel_patches`` launches the kernel for a CUDA tensor (or raises)
 and takes its plain torch version, ``fused_log_mel_patches_reference``, only
-for a CPU tensor. ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_VARIANT``
-the same per variant. It has no backward, as the reference has none: the
-train step applies it to data, outside autograd, and a waveform that
-requires grad is refused.
+for a CPU tensor. ``LAUNCHES`` counts kernel launches. It has no backward,
+as the reference has none: the train step applies it to data, outside
+autograd, and a waveform that requires grad is refused.
 
-The tensor-core variant's operands are built here, on the CPU, where the
-tests reach them: ``pack_dft_bases`` rounds or splits the bases per mode and
-lays them out in the order of mma.sync's B fragments, and ``tile_frames``
-picks the frame tile of a launch.
+The kernel's operands are built here, on the CPU, where the tests reach
+them: ``pack_dft_bases`` rounds or splits the bases per mode and lays them
+out in the order of mma.sync's B fragments, and ``tile_frames`` picks the
+frame tile of a launch.
 """
 
 from __future__ import annotations
@@ -32,22 +27,19 @@ import functools
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from mla_tpu_torch.config import FrontendConfig
 from mla_tpu_torch.ops import _build
 from mla_tpu_torch.ops.frontend import device_bases, dot, frame_signal, trimmed_spectral_bases
 
 LAUNCHES = 0  # kernel launches, for showing a run went through the kernel
-LAUNCHES_BY_VARIANT = {"mma": 0, "simt": 0}
 
 _MODES = {"highest": 0, "high": 0, "default": 1, "bf16x3": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"mla_fused_log_mel_mma": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P],
-               "mla_fused_log_mel_simt": [_P] * 5 + [_I] * 8 + [_F, _I, _P]}
+_SIGNATURES = {"mla_fused_log_mel_mma": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P]}
 
-# the tensor-core kernel (csrc/fused_frontend.cu)
+# the kernel (csrc/fused_frontend.cu)
 TILE_FRAMES = (64, 32, 16)  # its frame tiles, largest first
 SMEM_BYTES = 232448  # shared memory a block may take on sm_90
 RING_BYTES = 49152  # its warps' B-fragment rings, every mode
@@ -79,17 +71,6 @@ def _framing_plan(cfg: FrontendConfig, n_samples: int):
     return window, hop, used_frames, n_patches, blocks_needed, usable
 
 
-@functools.lru_cache(maxsize=16)
-def _trimmed_bases(cfg: FrontendConfig, device: torch.device):
-    """The SIMT kernel's constant operands on ``device``: the trimmed DFT
-    bases (``frontend.trimmed_spectral_bases``) with their rows zero-padded
-    to a multiple of 4, since the kernel reads taps four at a time, and the
-    mel filterbank. Unlike the TPU kernel's, no padding to g * hop rows."""
-    cos_b, sin_b, mel_t = device_bases(cfg, device)
-    pad = -cos_b.shape[0] % 4
-    return F.pad(cos_b, (0, 0, 0, pad)), F.pad(sin_b, (0, 0, 0, pad)), mel_t
-
-
 def round_tf32(a: torch.Tensor) -> torch.Tensor:
     """f32 -> the nearest TF32 value, ties away from zero, as f32: what
     ``cvt.rna.tf32.f32`` computes (the low 13 bits of the bit pattern
@@ -111,7 +92,7 @@ def _is_tf32(precision: str) -> bool:
 
 def padded_sizes(cfg: FrontendConfig):
     """(kp, np): taps and mel-active bins, each zero-padded to a multiple
-    of 16, the tensor-core kernel's K and N."""
+    of 16, the kernel's K and N."""
     n_bins = trimmed_spectral_bases(cfg)[3]
     return -(-cfg.window_length // 16) * 16, -(-n_bins // 16) * 16
 
@@ -134,7 +115,7 @@ def fragment_coords(kp: int, np_: int, precision: str):
 
 
 def pack_dft_bases(cfg: FrontendConfig, precision: str):
-    """The tensor-core kernel's constant operands, on the CPU: (basis, mel).
+    """The kernel's constant operands, on the CPU: (basis, mel).
 
     ``basis`` is int32 [kp / KS, np / 8, 32, W]: for each k-step, n-tile and
     lane, the lane's B fragment words, cos first, then sin. "default": the
@@ -172,15 +153,15 @@ def _mma_operands(cfg: FrontendConfig, device: torch.device, kind: str):
 
 
 def mma_smem_bytes(bm: int, kp: int, np_: int, precision: str) -> int:
-    """Shared memory of one tensor-core block: the f32 frame tile (row
-    stride kp + 4 for TF32, kp + 8 for bf16), the magnitude tile (row
-    stride np + 8) and the warps' B rings."""
+    """Shared memory of one block: the f32 frame tile (row stride kp + 4
+    for TF32, kp + 8 for bf16), the magnitude tile (row stride np + 8) and
+    the warps' B rings."""
     return 4 * bm * (kp + (4 if _is_tf32(precision) else 8) + np_ + 8) + RING_BYTES
 
 
 def tile_grid(batch: int, used_frames: int, bm: int):
-    """The tensor-core kernel's grid: (tiles per clip, clips). Block (x, b)
-    takes frames [x * bm, min((x + 1) * bm, used_frames)) of clip b."""
+    """The kernel's grid: (tiles per clip, clips). Block (x, b) takes
+    frames [x * bm, min((x + 1) * bm, used_frames)) of clip b."""
     return -(-used_frames // bm), batch
 
 
@@ -209,20 +190,17 @@ def _sm_count(device: torch.device) -> int:
 
 def fused_log_mel_patches(
     wav: torch.Tensor, cfg: FrontendConfig = FrontendConfig(), precision: str = "highest",
-    *, _variant: str = "mma", _bm: Optional[int] = None,
+    *, _bm: Optional[int] = None,
 ) -> torch.Tensor:
     """Waveform [B, n] or [n] f32 -> log-mel patches [B, N, 96, 64] (or
     [N, 96, 64]). A CUDA tensor launches the kernel on the current stream;
-    a CPU tensor takes the plain torch version. ``_variant`` ("mma" or
-    "simt") and ``_bm`` (the tensor-core kernel's frame tile, else
-    ``tile_frames``) exist for timing the kernel's variants side by side."""
+    a CPU tensor takes the plain torch version. ``_bm`` forces the frame
+    tile (else ``tile_frames``), so that a test reaches every tile."""
     global LAUNCHES
     if precision not in _MODES:
         raise ValueError(f"unknown precision {precision!r}; pick from {sorted(_MODES)}")
-    if _variant not in LAUNCHES_BY_VARIANT:
-        raise ValueError(f"unknown variant {_variant!r}; pick from {sorted(LAUNCHES_BY_VARIANT)}")
     if wav.dim() == 1:
-        return fused_log_mel_patches(wav[None], cfg, precision, _variant=_variant, _bm=_bm)[0]
+        return fused_log_mel_patches(wav[None], cfg, precision, _bm=_bm)[0]
     if wav.dim() != 2:
         raise ValueError(f"wav must be [B, n] or [n], got shape {tuple(wav.shape)}")
     if wav.dtype != torch.float32:
@@ -240,34 +218,24 @@ def fused_log_mel_patches(
         raise ValueError(f"fused_log_mel_patches runs on cuda or cpu, got {wav.device}")
 
     n_mel = cfg.num_mel_bins
+    if n_mel > MAX_MMA_MEL_BINS:
+        raise ValueError(f"the kernel takes at most {MAX_MMA_MEL_BINS} mel bins (one per "
+                         f"thread for a quarter of the tile), got {n_mel}")
+    kind = "highest" if _is_tf32(precision) else precision
+    basis, mel = _mma_operands(cfg, wav.device, kind)
+    kp, np_ = padded_sizes(cfg)
+    bm = _bm or tile_frames(b, used_frames, kp, np_, precision, _sm_count(wav.device))
     out = torch.empty((b, used_frames, n_mel), dtype=torch.float32, device=wav.device)
     lib = _build.load("fused_frontend", _SIGNATURES)
-    mode = _MODES[precision]
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream(wav.device).cuda_stream
-        if _variant == "mma":
-            if n_mel > MAX_MMA_MEL_BINS:
-                raise ValueError(f"the tensor-core kernel takes at most {MAX_MMA_MEL_BINS} mel "
-                                 f"bins (one per thread for a quarter of the tile), got {n_mel}")
-            kind = "highest" if _is_tf32(precision) else precision
-            basis, mel = _mma_operands(cfg, wav.device, kind)
-            kp, np_ = padded_sizes(cfg)
-            bm = _bm or tile_frames(b, used_frames, kp, np_, precision, _sm_count(wav.device))
-            err = lib.mla_fused_log_mel_mma(
-                wav.data_ptr(), basis.data_ptr(), mel.data_ptr(), out.data_ptr(), b,
-                n_samples, used_frames, window, kp, hop, np_, n_mel, cfg.log_offset, mode,
-                bm, stream)
-        else:
-            cos_b, sin_b, mel_t = _trimmed_bases(cfg, wav.device)
-            kp, n_bins = cos_b.shape
-            err = lib.mla_fused_log_mel_simt(
-                wav.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), mel_t.data_ptr(),
-                out.data_ptr(), b, n_samples, used_frames, window, kp, hop, n_bins,
-                n_mel, cfg.log_offset, mode, stream)
+        err = lib.mla_fused_log_mel_mma(
+            wav.data_ptr(), basis.data_ptr(), mel.data_ptr(), out.data_ptr(), b, n_samples,
+            used_frames, window, kp, hop, np_, n_mel, cfg.log_offset, _MODES[precision], bm,
+            stream)
     if err != 0:  # e.g. a batch past the grid limit or a window too wide for shared memory
         raise RuntimeError(f"fused_log_mel_patches kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    LAUNCHES_BY_VARIANT[_variant] += 1
     return out.view(b, n_patches, cfg.example_window_frames, n_mel)
 
 

@@ -262,10 +262,10 @@ class NativeTagServer:
         while not self._closing:
             # sf_wait_gather writes every wire row (blank rows for inactive
             # streams) and the active bytes straight into the packed
-            # layout. A new staging buffer per iteration (pinned on the
-            # card): the caching host allocator hands its block out again
-            # only after the copy from it has finished, so the next gather
-            # never writes into a buffer still in flight. A sharded server
+            # layout. A staging buffer per iteration (pinned on the card):
+            # the server hands one out again only after the copy from it
+            # has finished, so the next gather never writes into a buffer
+            # still in flight. A sharded server
             # takes the rows layout: the gather's flat buffer (the C
             # interface's) is re-laid into a new one, one numpy copy.
             flat = np.empty(srv.packed_nbytes, np.uint8) if sharded else srv.packed_buffer()

@@ -18,7 +18,10 @@ and the tick decodes on the device (``ops/adpcm.py``, a CUDA kernel).
 The packed tick (``tick_packed``; ``packed_buffer`` / ``gather_ready_packed``
 / ``put_packed`` / ``_packed_step`` for a front that drives it) makes a
 regular tick one upload of a flat uint8 buffer, [S * row wire bytes][S
-active bytes], unpacked on the device. ``timeline_cap`` keeps a per-stream
+active bytes], unpacked on the device. The server keeps a few staging
+buffers of that layout and knows which of their rows already hold wire
+silence, so a gather rewrites only the rows that changed since the
+buffer's last use, not every row of S. ``timeline_cap`` keeps a per-stream
 localization ring on the device, written inside the step. Weights reload
 with ``prepare_reload`` / ``commit_reload`` while streams stay open. The
 device steps are functional: ``states, tl = step(states, tl, ...)`` returns
@@ -49,6 +52,7 @@ new weights come in.
 
 from __future__ import annotations
 
+import sys
 from typing import List, Mapping, Optional
 
 import numpy as np
@@ -86,6 +90,26 @@ def _layout(state_dict: Mapping) -> dict:
 
 _WIRES = {"float32": np.float32, "int16": np.int16, "uint8": np.uint8,
           "adpcm4": np.uint8, "adpcm2": np.uint8}
+
+STAGING_BUFFERS = 4  # staging buffers a server keeps; past them each is new
+
+
+class _Staging:
+    """A staging buffer the server hands out again. ``silent``: the wire
+    rows that hold wire silence, as a gather left them (None: unknown, e.g.
+    after a front's own writes); ``known``: the same, taken at its hand-out,
+    for the gather that fills it; ``copies``: the events of its last
+    upload, one per target device."""
+
+    __slots__ = ("buf", "silent", "known", "copies")
+
+    def __init__(self, buf: np.ndarray):
+        self.buf, self.silent, self.known, self.copies = buf, None, None, []
+
+    def free(self) -> bool:
+        """Nothing but the server holds the buffer (the slot and the call's
+        argument are the two references) and its upload has finished."""
+        return sys.getrefcount(self.buf) == 2 and all(e.query() for e in self.copies)
 
 
 class BatchedStreamingServer:
@@ -203,6 +227,7 @@ class BatchedStreamingServer:
         self.packed_nbytes = self._wav_bytes + self.S
         # one row of wire silence as bytes, for the inactive rows of a packed buffer
         self._blank_row_u8 = np.ascontiguousarray(self._blank_tile()[0]).view(np.uint8)
+        self._staging: List[_Staging] = []
         # the packed tick's n_valid, made once: its one upload is the buffer
         self._n_valid_chunk = (
             torch.full((self.S,), chunk_patches, dtype=torch.int32, device=self.device)
@@ -487,18 +512,30 @@ class BatchedStreamingServer:
         return wav, active
 
     def packed_buffer(self) -> np.ndarray:
-        """A new staging buffer in the one-upload layout, flat
-        [packed_nbytes] uint8. On a CUDA device it is a numpy view of a
-        pinned tensor from PyTorch's caching host allocator, so
-        ``put_packed`` copies it asynchronously and the block is reused only
-        after that copy has finished; on the CPU it is plain memory. Pass
-        the buffer to ``put_packed`` as returned, once it is filled. On a
-        mesh the buffer is [S, packed_row_bytes], the rows layout."""
+        """A staging buffer in the one-upload layout, flat [packed_nbytes]
+        uint8. On a CUDA device it is a numpy view of pinned memory, which
+        ``put_packed`` copies asynchronously; on the CPU it is plain memory.
+        Pass the buffer to ``put_packed`` as returned, once it is filled.
+        The server keeps up to ``STAGING_BUFFERS`` of them and hands one out
+        again only once nothing else holds it and its upload has finished,
+        so no buffer in use or in flight is written. On a mesh the buffer
+        is [S, packed_row_bytes], the rows layout. One thread at a time."""
+        for st in self._staging:
+            if st.free():
+                st.known, st.silent = st.silent, None
+                return st.buf
         shape = ((self.packed_nbytes,) if self._shards is None
                  else (self.S, self.packed_row_bytes))
         if self.device.type == "cuda":
-            return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
-        return np.empty(shape, np.uint8)
+            buf = torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
+        else:
+            buf = np.empty(shape, np.uint8)
+        if len(self._staging) < STAGING_BUFFERS:
+            self._staging.append(_Staging(buf))
+        return buf
+
+    def _staged(self, buf: np.ndarray) -> Optional[_Staging]:
+        return next((st for st in self._staging if st.buf is buf), None)
 
     def put_packed(self, buf: np.ndarray):
         """The one host-to-device copy of a buffer from ``packed_buffer``
@@ -512,10 +549,19 @@ class BatchedStreamingServer:
                     and t.data_ptr() == buf.ctypes.data and buf.size == self.packed_nbytes):
                 raise ValueError("put_packed takes a buffer from packed_buffer(), as returned")
         if self._shards is None:
-            return t.to(self.device, non_blocking=True)
-        if self.device.type != "cuda":
+            out = t.to(self.device, non_blocking=True)
+        elif self.device.type != "cuda":
             return [t[sl].clone() for _, sl in self._shards]
-        return [t[sl].to(d, non_blocking=True) for d, sl in self._shards]
+        else:
+            out = [t[sl].to(d, non_blocking=True) for d, sl in self._shards]
+        st = self._staged(buf) if self.device.type == "cuda" else None
+        if st is not None:  # the buffer is free again once these copies have finished
+            st.copies = []
+            for d in dict.fromkeys([self.device] if self._shards is None
+                                   else [d for d, _ in self._shards]):
+                st.copies.append(torch.cuda.Event())
+                st.copies[-1].record(torch.cuda.current_stream(d))
+        return out
 
     def _packed_views(self, out: np.ndarray):
         """(wire_rows [S, row_wire_bytes], active_bytes [S]) views into a
@@ -529,19 +575,24 @@ class BatchedStreamingServer:
         ``out`` with every row's wire chunk bytes (wire silence for the
         inactive rows) and the active bytes, and advances the ready buffers.
         Returns the active bool vector, or None if no stream has a full
-        chunk."""
+        chunk. A buffer from ``packed_buffer`` is uploaded as this leaves
+        it; the rows it already held as silence are not written again."""
         cw, hw = self._chunk_hop_units()
         active = np.array([b is not None and len(b) >= cw for b in self._bufs])
         if not active.any():
             return None
+        st = self._staged(out)
+        known = st.known if st is not None else None  # rows already wire silence
         rows, act_bytes = self._packed_views(out)
         for sid in range(self.S):
             if active[sid]:
                 rows[sid] = np.ascontiguousarray(self._bufs[sid][:cw]).view(np.uint8)
                 self._bufs[sid] = self._bufs[sid][hw:]
-            else:
+            elif known is None or not known[sid]:
                 rows[sid] = self._blank_row_u8
         act_bytes[:] = active
+        if st is not None:
+            st.known = st.silent = ~active
         return active
 
     def tick(self) -> int:

@@ -244,10 +244,10 @@ class TickLoop:
                 # assignment, across the locks: opened and closed by hand
                 tick = profiling.annotate("mla.tick", tick=self.ticks)
                 tick.__enter__()
-                # a new staging buffer per tick (pinned on the card): the
-                # caching host allocator hands its block out again only
-                # after the copy from it has finished, so no tick's bytes
-                # are overwritten while in flight
+                # a staging buffer per tick (pinned on the card): the
+                # server hands one out again only after the copy from it
+                # has finished, so no tick's bytes are overwritten while in
+                # flight, and the gather rewrites only its changed rows
                 with profiling.annotate("mla.tick.gather") as gather:
                     buf = srv.packed_buffer()
                     active = srv.gather_ready_packed(buf)

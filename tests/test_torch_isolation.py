@@ -36,8 +36,8 @@ def test_port_modules_import_no_jax_and_nothing_of_mla_tpu():
     # every module was imported: 56 before the parallel package and the
     # context-parallel scorer (parallel/__init__.py, distributed.py, mesh.py,
     # serve/sharded.py) joined, 61 with the tensor-parallel layers
-    # (parallel/tensor.py)
-    assert int(n_modules) >= 61
+    # (parallel/tensor.py), 59 since the three kernel-timing scripts left ops/
+    assert int(n_modules) >= 59
     assert loaded == ""
 
 

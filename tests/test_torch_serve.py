@@ -159,6 +159,47 @@ def test_gather_ready_packed_bytes_equal_jax(setup, wire):
     assert ours.gather_ready_packed(out) is None
 
 
+@pytest.mark.parametrize("wire", WIRES)
+def test_staging_buffers_rewrite_only_changed_rows(setup, wire):
+    """A staging buffer the server hands out again holds, after each
+    gather, the bytes of a full write into stale memory, whichever streams
+    were ready in its earlier uses; a buffer a front wrote itself is
+    written whole again; one still held is not handed out."""
+    _, tcfg, _, state_dict = setup
+    kw = dict(max_streams=3, chunk_patches=2, transfer_dtype=wire, device="cpu")
+    ours, twin = (BatchedStreamingServer(tcfg, state_dict, **kw) for _ in range(2))
+    audio = (np.random.default_rng(15).standard_normal(ours.chunk_samples) * 0.2
+             ).astype(np.float32)
+    for srv in (ours, twin):
+        for _ in range(3):
+            srv.open()
+    rounds = [(0,), (1,), (0, 2), (), (2,), (1, 2), (0, 1, 2)]
+    first = None  # id() of the first buffer: a reference would hold it
+    for r, ready in enumerate(rounds):
+        if r == 3:  # a front's own writes into the buffer, dropped
+            buf = ours.packed_buffer()
+            buf[:] = 0xCD
+            del buf
+            continue
+        for srv in (ours, twin):
+            for sid in ready:
+                srv.feed(sid, audio * (0.3 + 0.2 * sid + 0.1 * r))
+        buf = ours.packed_buffer()
+        first = id(buf) if first is None else first
+        assert id(buf) == first  # released and uploaded: handed out again
+        full = np.full(twin.packed_nbytes, 0xAB, np.uint8)
+        active = ours.gather_ready_packed(buf)
+        np.testing.assert_array_equal(active, twin.gather_ready_packed(full))
+        np.testing.assert_array_equal(buf, full)
+        dev = ours.put_packed(buf)
+        del buf, dev
+        for srv in (ours, twin):  # the ready streams' tails: drop, keep the slots
+            for sid in ready:
+                srv._bufs[sid] = srv._bufs[sid][:0]
+    held = ours.packed_buffer()
+    assert id(held) == first and ours.packed_buffer() is not held
+
+
 @pytest.mark.parametrize("wire", ["int16", "adpcm4"])
 def test_tick_packed_serves_like_tick(setup, wire):
     """A whole session through tick_packed gives the scores of the same
